@@ -1,0 +1,267 @@
+"""The CUDA sources' arithmetic, compiled for the host, against the plain
+versions.
+
+``csrc/field.cuh`` emulates each PTX carry primitive exactly on the host,
+and every kernel's per-thread body is a plain function outside the
+``__CUDACC__`` block, so a host C++ compiler builds the same code the GPU
+runs, minus the launch.  Each body is held bit for bit against its plain
+PyTorch version on the same inputs; the launches themselves run only on the
+GPU (``chip_smoke.py``).
+"""
+
+import ctypes
+import random
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+from panda_tpu.curves.config import BN254
+from panda_tpu.fields.config import BN254_FP, BN254_FR
+from panda_tpu.reference import curve_ref
+from panda_tpu_torch.curves import point as cp
+from panda_tpu_torch.curves.point import AffinePoint, ProjPoint
+from panda_tpu_torch.fields import mont
+from panda_tpu_torch.ops import _ext, digits, hist, phase_a, point_kernels
+
+CSRC = _ext.CSRC
+HARNESS = r"""
+#include "point_ops.cu"
+#include "digits.cu"
+#include "hist.cu"
+#include "phase_a.cu"
+#include "wscan.cu"
+using namespace ptt;
+typedef const uint32_t* In;
+typedef uint32_t* Out;
+extern "C" {
+void h_fp(int op, In a, In b, Out r, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) {
+    fe x = load_fe(a, i, n), y = load_fe(b, i, n);
+    fe z = op == 0 ? mont_mul<Fp254>(x, y)
+         : op == 1 ? add_mod<Fp254>(x, y) : sub_mod<Fp254>(x, y);
+    store_fe(r, i, n, z);
+  }
+}
+void h_padd(In px, In py, In pz, In qx, In qy, In qz, Out rx, Out ry, Out rz,
+            int64_t n) {
+  for (int64_t i = 0; i < n; ++i)
+    padd_elem(px, py, pz, qx, qy, qz, rx, ry, rz, i, n);
+}
+void h_pmadd(In px, In py, In pz, In qx, In qy, Out rx, Out ry, Out rz,
+             int64_t n) {
+  for (int64_t i = 0; i < n; ++i)
+    pmadd_elem(px, py, pz, qx, qy, rx, ry, rz, i, n);
+}
+void h_pdbl(In px, In py, In pz, Out rx, Out ry, Out rz, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) pdbl_elem(px, py, pz, rx, ry, rz, i, n);
+}
+void h_digits(In s, Out mags, uint8_t* negs, int64_t n, int c, int W) {
+  for (int64_t j = 0; j < n; ++j) digits_elem(s, mags, negs, j, n, c, W);
+}
+void h_hist(In d, int32_t* counts, int64_t W, int64_t N, int D) {
+  for (int64_t i = 0; i < W * N; ++i) hist_elem(d, counts, i, N, D);
+}
+void h_phase_a(In keys, In sidx, In px, In py, int64_t n, Out ek, Out ex,
+               Out ey, Out ez, Out tk, Out tx, Out ty, Out tz, int64_t W,
+               int64_t m, int64_t S, int dead) {
+  for (int64_t l = 0; l < W * m; ++l)
+    phase_a_lane(keys, sidx, px, py, n, ek, ex, ey, ez, tk, tx, ty, tz, l, m,
+                 S, W * m, (uint32_t)dead);
+}
+void h_wscan(In bx, In by, In bz, Out rx, Out ry, Out rz, Out wx, Out wy,
+             Out wz, int64_t N, int64_t S) {
+  for (int64_t c = 0; c < N; ++c)
+    wscan_col(bx, by, bz, rx, ry, rz, wx, wy, wz, c, N, S);
+}
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the CUDA sources' bodies")
+    d = tmp_path_factory.mktemp("csrc_host")
+    src, lib = d / "harness.cpp", d / "libharness.so"
+    src.write_text(HARNESS)
+    subprocess.run([cxx, "-O2", "-std=c++17", "-shared", "-fPIC",
+                    f"-I{CSRC}", "-o", str(lib), str(src)], check=True)
+    return ctypes.CDLL(str(lib))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.numpy())
+
+
+def _call(fn, *args):
+    """Call a harness function: numpy arrays by pointer, ("i32", v) as a C
+    int, any other int as int64_t."""
+    conv = []
+    for a in args:
+        if isinstance(a, np.ndarray):
+            conv.append(ctypes.c_void_p(a.ctypes.data))
+        elif isinstance(a, tuple):              # ("i32", value)
+            conv.append(ctypes.c_int(a[1]))
+        else:
+            conv.append(ctypes.c_int64(a))
+    fn(*conv)
+
+
+def _words(spec, vals):
+    return mont.words_tensor(mont.ints_to_words(spec, vals))
+
+
+def _points(n, seed):
+    """n affine points (port words) plus n projective points that include
+    the identity, equal and opposite pairs."""
+    rng = random.Random(seed)
+    fp = BN254_FP
+    R = mont.radix(fp)
+    aff = [curve_ref.random_point(BN254, rng) for _ in range(n)]
+    ax = _words(fp, [x * R % fp.modulus for x, _ in aff])
+    ay = _words(fp, [y * R % fp.modulus for _, y in aff])
+    # projective: random z scaling, identity at 0, q = p at 1, q = -p at 2
+    zs = [rng.randrange(1, fp.modulus) for _ in range(n)]
+    px = _words(fp, [x * z * R % fp.modulus for (x, _), z in zip(aff, zs)])
+    py = _words(fp, [y * z * R % fp.modulus for (_, y), z in zip(aff, zs)])
+    pz = _words(fp, [z * R % fp.modulus for z in zs])
+    p = ProjPoint(px, py, pz)
+    ident = cp.identity(BN254, (n,))
+    p = ProjPoint(*(torch.cat([i[:, :1], a[:, 1:]], 1) for i, a in zip(ident, p)))
+    return p, AffinePoint(ax, ay)
+
+
+def test_field_constants_match_field_config():
+    text = (CSRC / "field.cuh").read_text()
+
+    def arr(struct, fn):
+        body = text.split(f"struct {struct}")[1].split(f" {fn}(int i)")[1]
+        words = re.findall(r"0x([0-9a-f]{8})u", body.split("};")[0])
+        return sum(int(w, 16) << (32 * i) for i, w in enumerate(words))
+
+    def ninv(struct):
+        body = text.split(f"struct {struct}")[1]
+        return int(re.search(r"ninv = 0x([0-9a-f]{8})u", body).group(1), 16)
+
+    R = 1 << 256
+    for struct, spec in (("Fp254", BN254_FP), ("Fr254", BN254_FR)):
+        p = spec.modulus
+        assert arr(struct, "p") == p
+        assert ninv(struct) == (-pow(p, -1, 1 << 32)) % (1 << 32)
+    assert arr("Fp254", "p2") == 2 * BN254_FP.modulus
+    assert arr("Fp254", "one") == R % BN254_FP.modulus
+    assert 4 * BN254_FP.modulus < R and 4 * BN254_FR.modulus < R
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "sub"])
+def test_field_ops_bit_identical(host, op):
+    fp = BN254_FP
+    p = fp.modulus
+    rng = random.Random(7)
+    edge = [0, 1, p - 1, p, p + 1, 2 * p - 2, 2 * p - 1]
+    a = edge * len(edge) + [rng.randrange(2 * p) for _ in range(200)]
+    b = [e for e in edge for _ in edge] + [rng.randrange(2 * p)
+                                           for _ in range(200)]
+    A, B = _words(fp, a), _words(fp, b)
+    out = np.empty_like(_np(A))
+    _call(host.h_fp, ("i32", ["mul", "add", "sub"].index(op)), _np(A),
+          _np(B), out, len(a))
+    plain = {"mul": mont.mul, "add": mont.add, "sub": mont.sub}[op](fp, A, B)
+    np.testing.assert_array_equal(out, _np(plain))
+    assert all(v < 2 * p for v in mont.words_to_ints(out))
+
+
+def test_point_ops_bit_identical(host):
+    n = 24
+    p, q_aff = _points(n, 11)
+    q = cp.from_affine(BN254, q_aff)
+    q = ProjPoint(*(torch.cat([a[:, :2], b[:, 2:3], c[:, 3:]], 1)
+                    for a, b, c in zip(p, cp.neg(BN254, p), q)))
+    outs = [np.empty_like(_np(p.x)) for _ in range(3)]
+    _call(host.h_padd, *map(_np, p), *map(_np, q), *outs, n)
+    for o, e in zip(outs, cp.add_plain(BN254, p, q)):
+        np.testing.assert_array_equal(o, _np(e))
+    _call(host.h_pmadd, *map(_np, p), *map(_np, q_aff), *outs, n)
+    for o, e in zip(outs, cp.madd_plain(BN254, p, q_aff)):
+        np.testing.assert_array_equal(o, _np(e))
+    _call(host.h_pdbl, *map(_np, p), *outs, n)
+    for o, e in zip(outs, cp.dbl_plain(BN254, p)):
+        np.testing.assert_array_equal(o, _np(e))
+
+
+@pytest.mark.parametrize("c", [7, 13, 16])
+def test_signed_digits_bit_identical(host, c):
+    fr = BN254_FR
+    rng = random.Random(c)
+    vals = [0, 1, fr.modulus - 1, fr.modulus, (1 << 256) - 1] + \
+        [rng.randrange(1 << 256) for _ in range(59)]
+    s = _words(fr, vals)
+    W = -(-fr.bits // c) + (1 if (-(-fr.bits // c)) * c < fr.bits + 1 else 0)
+    mags = np.empty((W, len(vals)), np.uint32)
+    negs = np.empty((W, len(vals)), np.uint8)
+    _call(host.h_digits, _np(s), mags, negs, len(vals), ("i32", c),
+          ("i32", W))
+    em, en = digits.signed_digits_plain(fr, s, c, W)
+    np.testing.assert_array_equal(mags.view(np.int32), _np(em))
+    np.testing.assert_array_equal(negs.astype(bool), _np(en))
+
+
+def test_hist_counts_identical(host):
+    rng = np.random.default_rng(5)
+    W, N, D = 3, 3000, 512
+    d = rng.integers(0, D + 2, size=(W, N)).astype(np.int32)
+    d[:, :40] = 0
+    counts = np.zeros((W, D), np.int32)
+    _call(host.h_hist, d, counts, W, N, ("i32", D))
+    np.testing.assert_array_equal(counts,
+                                  _np(hist.hist_counts_plain(torch.from_numpy(d), D)))
+
+
+def test_phase_a_bit_identical(host):
+    W, S, m, n, D = 2, 6, 4, 20, 8
+    rng = np.random.default_rng(9)
+    _, base = _points(n, 13)
+    keys = np.sort(rng.integers(0, D + 1, size=(W, S * m)), axis=1)
+    keys[:, -3:] = D + 1                                  # dead padding
+    idx = rng.integers(0, n, size=(W, S * m))
+    sgn = rng.integers(0, 2, size=(W, S * m)).astype(bool)
+    sidx = np.where(sgn, idx | -(1 << 31), idx)
+
+    def sm(a):      # lane-major (W, S*m) -> step-major (W, S, m) int32
+        return torch.from_numpy(np.ascontiguousarray(
+            a.reshape(W, m, S).transpose(0, 2, 1)).astype(np.int32))
+
+    k5, s5 = sm(keys), sm(sidx)
+    ek, ep, tk, tp = phase_a.scan_plain(BN254, k5, s5, base.x, base.y, D + 1)
+    P = W * S * m
+    o_ek = np.empty((W, S, m), np.uint32)
+    o_e = [np.empty((8, P), np.uint32) for _ in range(3)]
+    o_tk = np.empty((W, m), np.uint32)
+    o_t = [np.empty((8, W * m), np.uint32) for _ in range(3)]
+    _call(host.h_phase_a, _np(k5), _np(s5), _np(base.x), _np(base.y), n,
+          o_ek, *o_e, o_tk, *o_t, W, m, S, ("i32", D + 1))
+    np.testing.assert_array_equal(o_ek.view(np.int32), _np(ek))
+    np.testing.assert_array_equal(o_tk.view(np.int32), _np(tk))
+    for o, e in zip(o_e, ep):
+        np.testing.assert_array_equal(o.view(np.int32), _np(e).reshape(8, P))
+    for o, e in zip(o_t, tp):
+        np.testing.assert_array_equal(o.view(np.int32),
+                                      _np(e).reshape(8, W * m))
+
+
+def test_weighted_scan_bit_identical(host):
+    S, N = 5, 6
+    p, _ = _points(S * N, 17)
+    b = ProjPoint(*(a.reshape(8, S, N).contiguous() for a in p))
+    run, wsum = point_kernels.weighted_scan_plain(BN254, b)
+    outs = [np.empty((8, N), np.uint32) for _ in range(6)]
+    _call(host.h_wscan, *map(_np, b), *outs, N, S)
+    for o, e in zip(outs, (*run, *wsum)):
+        np.testing.assert_array_equal(o.view(np.int32), _np(e))
