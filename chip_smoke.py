@@ -6,19 +6,30 @@
 Phases, each of which raises on failure (the exit code is then non-zero):
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
-2. build the five CUDA kernels from panda_tpu_torch/csrc;
-3. each kernel against its plain PyTorch version on the card, at the MSM
-   main path's shapes for n points (c = 13, W = 20, D = 4096 at n = 2^16):
-   exact equality for the digits and the histogram, point equality for the
-   point ops, phase A (through the bucket tables it yields) and the weighted
-   scan; times from CUDA events, median of a few runs;
-4. the slice: a PandaManager on cuda:0 with cached BN254 bases, then
+2. build the seven CUDA kernels from panda_tpu_torch/csrc, in parallel;
+3. each kernel against its plain PyTorch version on the card, at its main
+   path's shapes: the five MSM kernels at n = 2^16 points (c = 13, W = 20,
+   D = 4096): exact equality for the digits and the histogram, point
+   equality for the point ops, phase A (through the bucket tables it
+   yields) and the weighted scan; fmul at (8, 2^20) and the DFT at K = 32,
+   nb = 2^15 (the 2^20 NTT's levels), forward and with the inverse's scale
+   and the canonical pass: equal words.  Times from CUDA events, median of
+   a few runs, beside the least time the card could take (bytes over
+   3.35 TB/s or operations over the peak rate, the larger) and, where one
+   PyTorch call computes the same function, that call's time;
+4. the MSM slice: a PandaManager on cuda:0 with cached BN254 bases, then
    api.msm_bn254_with_cached_bases at n = 2^16 and 2^20, every call held to
    the pool-aggregated big-integer oracle; median, min and max host wall
-   time of 20 calls; the launch counters of all five kernels must be > 0;
-5. where the time goes: the same call run stage by stage with a device
-   synchronise around each stage, median, min and max of 10 calls;
-6. the device's busy share of one call, from torch.profiler.
+   time of 20 calls; the launch counters of its five kernels must be > 0;
+   then the NTT slice: api.ntt_bn254, api.intt and api.ntt_bn254_v1 (a
+   non-default root) at 2^20 and 2^22, held to a bit-exact INTT roundtrip
+   and 4 big-integer spot checks each, and at 2^12 to the NTT oracle byte
+   for byte; 20 timed calls (10 at 2^22) and the device time of the
+   transform alone; the fmul and dft counters must be > 0;
+5. where the time goes: the MSM call (both sizes) and the NTT call (2^20)
+   run stage by stage with a device synchronise around each stage, median,
+   min and max of 10 calls;
+6. the device's busy share of one call each, from torch.profiler.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.  Inputs come from fixed seeds.
@@ -81,13 +92,32 @@ def word_err(a, b) -> int:
     return int((u(a) - u(b)).abs().max().item()) if a.numel() else 0
 
 
+# Peak rates of one H100 SXM at its full 700 W limit.  Memory and int8
+# tensor cores: NVIDIA's data sheet (on-chip-measurement guide).  32-bit
+# integer multiply-add: 64 per SM per clock (Hopper architecture white
+# paper) x 132 SMs x 1.98 GHz boost; every CIOS multiply is 264 of them
+# (8 x (16 + 1 + 16)), and the lo and hi halves count separately.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+IMAD_PER_S = 64 * 132 * 1.98e9
+MONT_MUL_IMADS = 264
+
+
+def bound(nbytes: float, ops: float, rate: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over their peak rate."""
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
 def pool_inputs(curve, n: int, seed: int, oracle: bool = True):
     """Pool-structured MSM inputs: <= 1024 distinct random points and a
     pool of full-range scalars, indexed by numpy draws.  Returns the bases
     and scalar blobs and the pool-aggregated oracle result (None when
     ``oracle`` is False)."""
-    from panda_tpu.reference import curve_ref
     from panda_tpu_torch.fields import mont
+    from panda_tpu_torch.reference import curve_ref
     fp, fr = curve.fp, curve.fr
     rng = random.Random(seed)
     npr = np.random.default_rng(seed)
@@ -121,6 +151,7 @@ def kernel_checks(curve, n: int, device) -> dict:
     from panda_tpu_torch.runtime.manager import PandaManager
 
     res = {}
+    imad = lambda muls: muls * MONT_MUL_IMADS            # noqa: E731
     c = msm.window_bits((n - 1).bit_length())
     W = msm.signed_window_count(curve.fr.bits, c)
     D = 1 << (c - 1)
@@ -131,12 +162,14 @@ def kernel_checks(curve, n: int, device) -> dict:
     px, py = gm.ingest_bases(bases)
     s = gm.ingest_scalars(scalars)
 
-    def record(name, err, ms, plain_ms, ok):
+    def record(name, err, ms, plain_ms, ok, bnd, library_ms=None):
         log(f"[kernels] {name}: max_abs_err={err} kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms")
+            f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+            f"({bnd['bound_by']}), library {library_ms} ms")
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with plain")
-        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **bnd, "library_ms": library_ms}
 
     # 1. signed digits: exact
     km, kn = digits.signed_digits(curve.fr, s, c, W)
@@ -145,17 +178,26 @@ def kernel_checks(curve, n: int, device) -> dict:
     record("digits", err,
            cuda_ms(lambda: digits.signed_digits(curve.fr, s, c, W), 5),
            cuda_ms(lambda: digits.signed_digits_plain(curve.fr, s, c, W), 3),
-           torch.equal(km, pm) and torch.equal(kn, pn))
+           torch.equal(km, pm) and torch.equal(kn, pn),
+           bound(n * 32 + W * n * 5, imad(n), IMAD_PER_S))
 
-    # 2. histogram of the digits: exact
+    # 2. histogram of the digits: exact; the library call is one bincount
+    #    of the digits offset by w (D + 2) (digit 0 and dead keys binned too)
     kh, ph = hist.hist_counts(km, D), hist.hist_counts_plain(km, D)
+    offs = (km.clamp(0, D + 1).long() + torch.arange(
+        W, device=device)[:, None] * (D + 2)).reshape(-1)
+    lib = cuda_ms(lambda: torch.bincount(offs, minlength=W * (D + 2)), 5)
     record("hist", word_err(kh, ph),
            cuda_ms(lambda: hist.hist_counts(km, D), 5),
            cuda_ms(lambda: hist.hist_counts_plain(km, D), 3),
-           torch.equal(kh, ph))
+           torch.equal(kh, ph), bound(W * n * 4 + W * D * 4, 0, IMAD_PER_S),
+           lib)
 
-    # 3. phase A, through the bucket tables it yields
+    # 3. phase A, through the bucket tables it yields; the work this data
+    #    needs is one mixed add per entry with a digit in 1..D
     st = msm.sorted_streams(km, kn, c, m)
+    live = int(((st.keys >= 1) & (st.keys <= D)).sum().item())
+    P = st.keys.numel()
     ka = phase_a.scan(curve, st.keys, st.sidx, px, py, D + 1)
     pa = phase_a.scan_plain(curve, st.keys, st.sidx, px, py, D + 1)
     kb = msm.assemble_buckets(curve, st, *ka)
@@ -167,7 +209,9 @@ def kernel_checks(curve, n: int, device) -> dict:
            cuda_ms(lambda: phase_a.scan(curve, st.keys, st.sidx, px, py,
                                         D + 1), 5),
            cuda_ms(lambda: phase_a.scan_plain(curve, st.keys, st.sidx, px,
-                                              py, D + 1), 2), ok)
+                                              py, D + 1), 2), ok,
+           bound(P * 8 + px.shape[1] * 64 + P * 100 + W * m * 100,
+                 imad(11 * live), IMAD_PER_S))
 
     # 4. point ops on the bucket tables' shape (8, W, D): the interior +
     #    tail add, a mixed add of bases, a doubling
@@ -184,7 +228,9 @@ def kernel_checks(curve, n: int, device) -> dict:
         kms.append(cuda_ms(lambda: kf(curve, *args), 5))
         pms.append(cuda_ms(lambda: pf(curve, *args), 3))
     log(f"[kernels] point_ops padd/pmadd/pdbl kernel ms {kms}, plain ms {pms}")
-    record("point_ops", max(errs), kms[0], pms[0], all(oks))
+    N = W * D
+    record("point_ops", max(errs), kms[0], pms[0], all(oks),
+           bound(9 * 32 * N, imad(12 * N), IMAD_PER_S))
 
     # 5. weighted scan on the bucket tables, split as weighted_window_sum does
     batch = W
@@ -196,10 +242,77 @@ def kernel_checks(curve, n: int, device) -> dict:
     pr, pw = point_kernels.weighted_scan_plain(curve, cols)
     ok = bool(cp.eq(curve, kr, pr).all()) and bool(cp.eq(curve, kw, pw).all())
     err = max(word_err(a, b) for a, b in zip((*kr, *kw), (*pr, *pw)))
+    S, N = cols.x.shape[1:]
     record("wscan", err,
            cuda_ms(lambda: point_kernels.weighted_scan(curve, cols), 5),
            cuda_ms(lambda: point_kernels.weighted_scan_plain(curve, cols), 3),
-           ok)
+           ok, bound(3 * 32 * S * N + 6 * 32 * N, imad(24 * S * N),
+                     IMAD_PER_S))
+    return res
+
+
+def random_words(n: int, seed: int, top: int = 1 << 32):
+    """(8, n) int32 words of random values whose top word is below ``top``
+    (0x30644e72 keeps them below r, 0x60c89ce5 below 2r)."""
+    import torch
+    g = np.random.default_rng(seed)
+    w = g.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
+    w[7] %= top
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32))
+
+
+def ntt_kernel_checks(fr, log_n: int, device) -> dict:
+    """Phase 3 for the NTT's kernels at the 2^log_n NTT's shapes: fmul on
+    (8, 2^log_n) (the top level's twiddle product: DFT output < 2r times
+    the table < r), the DFT at K = 32, nb = 2^(log_n - 5) (every level of
+    2^20), forward and with the inverse's n^-1 scale and the canonical
+    pass.  Kernel and plain version must give equal words."""
+    import torch
+    from panda_tpu_torch.ops import fmul, ntt_fused
+    res = {}
+    n = 1 << log_n
+    a = random_words(n, 31, 0x60c89ce5).to(device)          # < 2r
+    b = random_words(n, 32, 0x30644e72).to(device)          # < r
+    errs, oks = [], []
+    for canon in (False, True):
+        k, p = fmul.fmul(fr, a, b, canon), fmul.fmul_plain(fr, a, b, canon)
+        errs.append(word_err(k, p))
+        oks.append(torch.equal(k, p))
+    ms = cuda_ms(lambda: fmul.fmul(fr, a, b), 20)
+    plain_ms = cuda_ms(lambda: fmul.fmul_plain(fr, a, b), 2)
+    res["fmul"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                   **bound(3 * 32 * n, n * MONT_MUL_IMADS, IMAD_PER_S),
+                   "library_ms": None}
+    log(f"[kernels] fmul (8, 2^{log_n}): max_abs_err={max(errs)} kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {res['fmul']}")
+    if not all(oks):
+        raise AssertionError("fmul: kernel disagrees with plain")
+
+    log_k, nb = 5, 1 << (log_n - 5)
+    K = 1 << log_k
+    x = random_words(K * nb, 33).reshape(8, K, nb).to(device)   # any < 2^256
+    w = fr.root_of_unity(log_k)
+    fwd = ntt_fused.dft_matrix(fr, log_k, w, 1, device)
+    inv = ntt_fused.dft_matrix(fr, log_k, pow(w, -1, fr.modulus),
+                               pow(n, -1, fr.modulus), device)
+    errs, oks = [], []
+    for mat, canon in ((fwd, False), (inv, True)):
+        k = ntt_fused.dft_apply_fused(fr, x, log_k, mat, canon)
+        p = ntt_fused.dft_apply_fused_plain(fr, x, log_k, mat, canon)
+        errs.append(word_err(k, p))
+        oks.append(torch.equal(k, p))
+    ms = cuda_ms(lambda: ntt_fused.dft_apply_fused(fr, x, log_k, fwd), 20)
+    plain_ms = cuda_ms(
+        lambda: ntt_fused.dft_apply_fused_plain(fr, x, log_k, fwd), 3)
+    D = 32 * K
+    res["dft"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                  **bound(2 * 32 * K * nb + D * D, 2 * D * D * nb,
+                          INT8_OPS_PER_S),
+                  "library_ms": None}
+    log(f"[kernels] dft K=32 nb=2^{log_n - 5}: max_abs_err={max(errs)} kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {res['dft']}")
+    if not all(oks):
+        raise AssertionError("dft: kernel disagrees with plain")
     return res
 
 
@@ -344,7 +457,7 @@ def stage_breakdown(curve, sl: dict, reps: int) -> dict:
     return {"log_n": log_n, "stages": out, "launches": dict(_ext.launches)}
 
 
-def device_busy(sl: dict, unprofiled_ms: float) -> dict:
+def device_busy(label: str, call, want: bytes, unprofiled_ms: float) -> dict:
     """Phase 6: one byte-API call under torch.profiler.  Busy time is the
     union of the device intervals (kernels and copies; the profiler's own
     buffer requests left out); the share is given over the profiled call's
@@ -352,17 +465,15 @@ def device_busy(sl: dict, unprofiled_ms: float) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from panda_tpu_torch.runtime import api
-    gm, scalars = sl["gm"], sl["scalars"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        blob = api.msm_bn254_with_cached_bases(gm, scalars, 0)
+        blob = call()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    if blob != sl["want"]:
-        raise AssertionError("profiled call: blob != oracle")
+    if blob != want:
+        raise AssertionError(f"profiled call {label}: wrong bytes")
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA
@@ -382,15 +493,257 @@ def device_busy(sl: dict, unprofiled_ms: float) -> dict:
                   if e.self_device_time_total > 0
                   and "Activity Buffer" not in e.key),
                  key=lambda e: -e.self_device_time_total)[:8]
-    log(f"[busy 2^{sl['log_n']}] device busy {busy:.3f} ms; profiled wall "
+    log(f"[busy {label}] device busy {busy:.3f} ms; profiled wall "
         f"{wall:.3f} ms (share {busy / wall:.3f}); unprofiled median "
         f"{unprofiled_ms:.3f} ms (share {busy / unprofiled_ms:.3f})")
     for e in top:
         log(f"  {e.key[:60]:<60} {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count}")
-    return {"log_n": sl["log_n"], "busy_ms": busy, "profiled_wall_ms": wall,
+    return {"label": label, "busy_ms": busy, "profiled_wall_ms": wall,
             "share_profiled": busy / wall,
             "share_unprofiled": busy / unprofiled_ms}
+
+
+# ---------------------------------------------------------------------------
+# The NTT slice
+# ---------------------------------------------------------------------------
+
+def horner(coeffs: list, points: list, p: int) -> list:
+    """sum_j c_j x^j mod p at each point, one pass over the coefficients."""
+    accs = [0] * len(points)
+    for c in reversed(coeffs):
+        accs = [(a * x + c) % p for a, x in zip(accs, points)]
+    return accs
+
+
+def ntt_case(fr, log_n: int, seed: int) -> dict:
+    """Canonical random elements (top word below r's, so every value is
+    below r and the INTT roundtrip returns the same bytes) as wire bytes,
+    and their words as Python ints for the spot checks."""
+    n = 1 << log_n
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(n, 8),
+                                             dtype=np.uint64)
+    w[:, 7] %= 0x30644e72
+    data = w.astype("<u4").tobytes()
+    ints = [int.from_bytes(data[i:i + 32], "little")
+            for i in range(0, len(data), 32)]
+    return {"log_n": log_n, "n": n, "data": data, "ints": ints}
+
+
+def spot_check(fr, case: dict, out: bytes, omega: int, ks: list, what: str):
+    """out[k] == sum_j c_j omega^(j k) mod r for the wire words c_j: the
+    Montgomery factors of input and output cancel."""
+    p = fr.modulus
+    got = [int.from_bytes(out[32 * k:32 * k + 32], "little") for k in ks]
+    want = horner(case["ints"], [pow(omega, k, p) for k in ks], p)
+    if got != want:
+        raise AssertionError(f"{what} 2^{case['log_n']}: spot check failed "
+                             f"at k in {ks}")
+
+
+def ntt_timed(label: str, call, want: bytes, reps: int, n: int,
+              card: str) -> dict:
+    """Host wall time of ``reps`` steady calls (each ends with its bytes on
+    the host, which must equal ``want``), median / min / max, and
+    elements/s at the median."""
+    import torch
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        blob = call()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if blob != want:
+            raise AssertionError(f"{label}: repeat call bytes differ")
+    s = spread(times)
+    log(f"[ntt {label}] ms/call over {reps} calls: median "
+        f"{s['median_ms']:.3f}, min {s['min_ms']:.3f}, max {s['max_ms']:.3f};"
+        f" {n / s['median_ms'] * 1e3:.0f} elements/s at the median on {card}")
+    return {**s, "elements_per_s": n / s["median_ms"] * 1e3, "calls_ms": times}
+
+
+def bls_raises(device) -> None:
+    """The BLS NTT alias on the card raises NotImplementedError (no plain
+    version runs for a CUDA tensor)."""
+    from panda_tpu_torch import InitUnitType, PandaManager
+    from panda_tpu_torch.runtime import api
+    gm = PandaManager.init_all(0, InitUnitType.NTT, curve="bls12_377",
+                               device=device)
+    try:
+        api.ntt_bls12_377(gm, bytes(32 * 32), 5)
+    except NotImplementedError as e:
+        log(f"[kernels] BLS12-377 NTT on the card raises: {e}")
+        return
+    raise AssertionError("BLS12-377 NTT ran on the card")
+
+
+def ntt_small_gate(fr, device) -> None:
+    """2^12: forward and inverse bytes equal the big-int NTT oracle's, for
+    inputs that include words >= r (any value below 2^256 is taken)."""
+    from panda_tpu_torch import InitUnitType, PandaManager
+    from panda_tpu_torch.reference import ntt_ref
+    from panda_tpu_torch.runtime import api
+    log_n, p = 12, fr.modulus
+    g = random.Random(12)
+    words = [g.randrange(1 << 256) for _ in range(1 << log_n)]
+    words[:3] = [p, p + 5, (1 << 256) - 1]
+    data = b"".join(v.to_bytes(32, "little") for v in words)
+    vals = [fr.from_wire_int(v) for v in words]
+    w = fr.root_of_unity(log_n)
+    wire = lambda vs: b"".join(fr.to_wire_int(v).to_bytes(32, "little")
+                               for v in vs)                # noqa: E731
+    gm = PandaManager.init_all(0, InitUnitType.NTT, device=device)
+    if api.ntt_bn254(gm, data, log_n) != wire(ntt_ref.ntt_oracle(fr, vals, w)):
+        raise AssertionError("NTT 2^12 != ntt_ref")
+    if api.intt(gm, data, log_n) != wire(ntt_ref.intt_oracle(fr, vals, w)):
+        raise AssertionError("INTT 2^12 != ntt_ref")
+    log("[ntt 2^12] forward and inverse bytes equal ntt_ref")
+
+
+def ntt_slice(fr, case: dict, card: str, reps: int, device) -> dict:
+    """Phase 4 for the NTT at one size: forward, inverse and v1 with the
+    root w^3, held to the spot checks and the roundtrip; then the timed
+    calls and the device time of the transform alone."""
+    import torch
+    from panda_tpu_torch import InitUnitType, PandaManager
+    from panda_tpu_torch.fields import mont
+    from panda_tpu_torch.ops import ntt as ntt_ops
+    from panda_tpu_torch.runtime import api
+    log_n, n, data = case["log_n"], case["n"], case["data"]
+    p = fr.modulus
+    gm = PandaManager.init_all(0, InitUnitType.NTT, device=device)
+    g = random.Random(log_n)
+    ks = [0, 1, n - 1, g.randrange(n)]
+    t0 = time.perf_counter()
+    out = api.ntt_bn254(gm, data, log_n)
+    first = time.perf_counter() - t0
+    spot_check(fr, case, out, fr.root_of_unity(log_n), ks, "NTT")
+    t0 = time.perf_counter()
+    back = api.intt(gm, out, log_n)
+    first_inv = time.perf_counter() - t0
+    if back != data:
+        raise AssertionError(f"INTT(NTT) 2^{log_n}: roundtrip bytes differ")
+    w3 = pow(fr.root_of_unity(log_n), 3, p)
+    out3 = api.ntt_bn254_v1(gm, data, log_n,
+                            fr.to_wire_int(w3).to_bytes(32, "little"))
+    spot_check(fr, case, out3, w3, ks, "NTT v1 (root w^3)")
+    log(f"[ntt 2^{log_n}] roundtrip exact, spot checks at k = {ks} exact "
+        f"(forward and v1); first call {first:.3f} s, first inverse "
+        f"{first_inv:.3f} s (tables built)")
+
+    res = {"log_n": log_n, "first_s": first, "first_inverse_s": first_inv,
+           "forward": ntt_timed(f"forward 2^{log_n}",
+                                lambda: api.ntt_bn254(gm, data, log_n), out,
+                                reps, n, card),
+           "inverse": ntt_timed(f"inverse 2^{log_n}",
+                                lambda: api.intt(gm, out, log_n), data,
+                                reps, n, card)}
+    x = mont.bytes_to_tensor(fr, data, device)
+    tables = gm.ntt_tables(log_n)
+    dev = cuda_ms(lambda: ntt_ops.run_ntt(fr, x, tables), reps)
+    res["device_ms"] = dev
+    res["device_elements_per_s"] = n / dev * 1e3
+    log(f"[ntt 2^{log_n}] run_ntt alone on the device (CUDA events, median "
+        f"of {reps}): {dev:.3f} ms, {n / dev * 1e3:.0f} elements/s")
+    case["gm"], case["out"] = gm, out
+    return res
+
+
+def ntt_stage_breakdown(fr, case: dict, reps: int) -> dict:
+    """Phase 5 for the NTT: the byte-API forward call run stage by stage
+    with a device synchronise around each stage (host clock), the calls
+    api._ntt_run and ntt_mxu._transform make, in their order; the bytes are
+    held to the API's.  Per-stage {median_ms, min_ms, max_ms} over
+    ``reps`` calls."""
+    import torch
+    from panda_tpu_torch.ops import _ext, fmul, ntt_fused, ntt_mxu
+    gm, log_n, data = case["gm"], case["log_n"], case["data"]
+    plan = gm.ntt_tables(log_n).plan(False, gm.device)
+    lvl_tabs, leaf_mat = ntt_mxu.plan_tables(plan)
+    rows = {}
+    for _ in range(reps):
+        _ext.reset_counts()
+        cur = {}
+
+        def timed(stage, fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            cur[stage] = cur.get(stage, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+
+        def tr(level, x, canonical):
+            top = " + canonical pass" if canonical else ""
+            if level == len(plan.levels):
+                lk = plan.leaf[0]
+                return timed(f"dft leaf (K = 2^{lk}){top}",
+                             ntt_fused.dft_apply_fused, fr, x, lk, leaf_mat,
+                             canonical)
+            la, lb, _, _ = plan.levels[level]
+            t1t, mat = lvl_tabs[level]
+            A, B = 1 << la, 1 << lb
+            W, M, batch = x.shape
+            y = tr(level + 1, x.reshape(W, B, A * batch), False)
+            z = timed("transposes", lambda: y.reshape(W, B, A, batch)
+                      .permute(0, 2, 1, 3).contiguous())
+            pre = timed("twiddle table broadcast", lambda: t1t.unsqueeze(-1)
+                        .expand(W, A, B, batch).reshape(W, -1).contiguous())
+            z = timed("fmul (twiddles)", fmul.fmul, fr, z.reshape(W, -1), pre)
+            return timed(f"dft level {level} (K = 2^{la}){top}",
+                         ntt_fused.dft_apply_fused, fr,
+                         z.reshape(W, A, B * batch), la, mat,
+                         canonical).reshape(W, A * B, batch)
+
+        raw = timed("ingest: bytes to rows (host)", lambda: torch.from_numpy(
+            np.frombuffer(data, np.uint8).view("<i4").reshape(-1, 8).copy()))
+        xd = timed("ingest: copy to device", lambda: raw.to(gm.device))
+        x = timed("ingest: transpose on device", lambda: xd.t().contiguous())
+        y = tr(0, x.reshape(8, -1, 1), True).reshape(8, -1)
+        yt = timed("output: transpose on device", lambda: y.t().contiguous())
+        host = timed("output: copy to host", lambda: yt.cpu())
+        blob = timed("output: bytes (host)", lambda: host.numpy().tobytes())
+        if blob != case["out"]:
+            raise AssertionError(f"NTT stage breakdown 2^{log_n}: bytes "
+                                 "differ from the API's")
+        for k, v in cur.items():
+            rows.setdefault(k, []).append(v)
+    out = {k: spread(v) for k, v in rows.items()}
+    out["total"] = spread([sum(rows[k][i] for k in rows) for i in range(reps)])
+    log(f"[ntt stages 2^{log_n}] levels {[l[:2] for l in plan.levels]}, leaf "
+        f"2^{plan.leaf[0]}; ms per call over {reps} calls, synchronised "
+        "stages (median / min / max):")
+    for k, v in out.items():
+        log(f"  {k:<44} {v['median_ms']:9.3f} {v['min_ms']:9.3f} "
+            f"{v['max_ms']:9.3f}")
+    log(f"  launches in one call: {dict(_ext.launches)}")
+    return {"log_n": log_n, "stages": out, "launches": dict(_ext.launches)}
+
+
+REPLACES = {"digits": "panda_tpu/ops/digits_pallas.py:77",
+            "hist": "panda_tpu/ops/hist_pallas.py:63",
+            "phase_a": "panda_tpu/ops/phase_a_pallas.py:257",
+            "point_ops": "panda_tpu/ops/point_pallas.py:48",
+            "wscan": "panda_tpu/ops/point_pallas.py:167",
+            "fmul": "panda_tpu/ops/point_pallas.py:251",
+            "dft": "panda_tpu/ops/ntt_fused.py:83"}
+MSM_KERNELS = ("digits", "hist", "phase_a", "point_ops", "wscan")
+NTT_KERNELS = ("fmul", "dft")
+
+
+def counted(kernels, run):
+    """Run one main path with every launch counter set to 0 just before it;
+    fail unless each of ``kernels`` launched.  Returns (run's result,
+    counts)."""
+    from panda_tpu_torch.ops import _ext
+    _ext.reset_counts()
+    out = run()
+    counts = {k: _ext.launches[k] for k in kernels}
+    log(f"[slice] kernel launches: {counts}")
+    dead = [k for k, v in counts.items() if v == 0]
+    if dead:
+        raise AssertionError(f"kernels never launched on the main path: {dead}")
+    return out, counts
 
 
 def main() -> int:
@@ -398,8 +751,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from panda_tpu.curves.config import BN254
+    from panda_tpu_torch.curves.config import BN254
     from panda_tpu_torch.ops import _ext
+    fr = BN254.fr
 
     # 1. environment
     card = nvidia_smi_line()
@@ -417,38 +771,50 @@ def main() -> int:
     device = torch.device("cuda", 0)
 
     # 2. build
-    log(f"[build] five kernels in {_ext.build_all():.1f} s")
+    log(f"[build] {len(_ext.KERNELS)} kernels in {_ext.build_all():.1f} s")
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions; a curve the kernels do not
+    #    cover raises on the card
     res = kernel_checks(BN254, 1 << 16, device)
+    res.update(ntt_kernel_checks(fr, 20, device))
+    bls_raises(device)
 
-    # 4. the slice: the main path, counted
+    # 4. the slices: each main path, counted
     sizes = [slice_inputs(BN254, k, device) for k in (16, 20)]
-    _ext.reset_counts()
-    runs = [slice_run(sl, card, 20) for sl in sizes]
-    counts = dict(_ext.launches)
-    log(f"[slice] kernel launches: {counts}")
-    dead = [k for k, v in counts.items() if v == 0]
-    if dead:
-        raise AssertionError(f"kernels never launched on the main path: {dead}")
+    runs, counts = counted(MSM_KERNELS,
+                           lambda: [slice_run(sl, card, 20) for sl in sizes])
+    ntt_small_gate(fr, device)
+    cases = [ntt_case(fr, k, 20261016 + k) for k in (20, 22)]
+    ntt_runs, ntt_counts = counted(
+        NTT_KERNELS, lambda: [ntt_slice(fr, cs, card, r, device)
+                              for cs, r in zip(cases, (20, 10))])
+    counts.update(ntt_counts)
 
     # 5. where the time goes, 6. device busy share (not counted)
+    from panda_tpu_torch.runtime import api
     stages = [stage_breakdown(BN254, sl, 10) for sl in sizes]
-    busy = [device_busy(sl, r["median_ms"]) for sl, r in zip(sizes, runs)]
+    stages.append(ntt_stage_breakdown(fr, cases[0], 10))
+    busy = [device_busy(
+        f"MSM 2^{sl['log_n']}",
+        lambda sl=sl: api.msm_bn254_with_cached_bases(sl["gm"],
+                                                      sl["scalars"], 0),
+        sl["want"], r["median_ms"]) for sl, r in zip(sizes, runs)]
+    c20 = cases[0]
+    busy.append(device_busy(
+        "NTT 2^20", lambda: api.ntt_bn254(c20["gm"], c20["data"], 20),
+        c20["out"], ntt_runs[0]["forward"]["median_ms"]))
     for sl in sizes:
         sl["gm"].deinit()
+    for cs in cases:
+        cs["gm"].deinit()
 
-    replaces = {"digits": "panda_tpu/ops/digits_pallas.py:77",
-                "hist": "panda_tpu/ops/hist_pallas.py:63",
-                "phase_a": "panda_tpu/ops/phase_a_pallas.py:257",
-                "point_ops": "panda_tpu/ops/point_pallas.py:48",
-                "wscan": "panda_tpu/ops/point_pallas.py:167"}
     kernels = [{"name": k, "route": "cuda",
                 "source": f"panda_tpu_torch/csrc/{k}.cu",
-                "replaces": replaces[k], "launches": counts[k], **res[k]}
+                "replaces": REPLACES[k], "launches": counts[k], **res[k]}
                for k in _ext.KERNELS]
-    log(json.dumps({"slice": runs, "stages": stages, "busy": busy,
-                    "card": card}))
+    log(json.dumps({"slice": runs, "ntt": ntt_runs, "stages": stages,
+                    "busy": busy, "card": card}))
+    log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

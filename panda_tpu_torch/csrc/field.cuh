@@ -161,7 +161,8 @@ inline void atomic_inc(int32_t* p) { *p += 1; }
 #endif
 
 // ---------------------------------------------------------------------------
-// Field parameters (checked against panda_tpu.fields.config by the tests)
+// Field parameters (checked against panda_tpu_torch/fields/config.py by the
+// tests)
 // ---------------------------------------------------------------------------
 struct Fp254 {  // BN254 base field
   static constexpr uint32_t ninv = 0xe4866389u;  // -p^-1 mod 2^32
@@ -189,6 +190,16 @@ struct Fr254 {  // BN254 scalar field
                            0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
     return v[i];
   }
+  static PT_FN uint32_t p2(int i) {  // 2p
+    const uint32_t v[8] = {0xe0000002u, 0x87c3eb27u, 0xf372e122u, 0x5067d090u,
+                           0x0302b0bau, 0x70a08b6du, 0xc2634053u, 0x60c89ce5u};
+    return v[i];
+  }
+  static PT_FN uint32_t one(int i) {  // R mod p: Montgomery 1
+    const uint32_t v[8] = {0x4ffffffbu, 0xac96341cu, 0x9f60cd29u, 0x36fc7695u,
+                           0x7879462eu, 0x666ea36fu, 0x9a07df2fu, 0x0e0a77c1u};
+    return v[i];
+  }
 };
 
 struct fe {
@@ -200,7 +211,9 @@ struct fe {
 // ---------------------------------------------------------------------------
 
 // CIOS Montgomery product a b R^-1.  Output < 2p for a, b < 2p; for b = 1
-// (plain integer) and any a < R the output is <= p.
+// (plain integer) and any a < R the output is <= p.  For a >= 2p and any
+// other b the 9-word accumulator can overflow (mid-loop t < a + p, which may
+// pass 2^256), so callers keep a < 2p.
 template <class F>
 PT_FN fe mont_mul(const fe& a, const fe& b) {
   uint32_t t[9];
@@ -220,6 +233,33 @@ PT_FN fe mont_mul(const fe& a, const fe& b) {
     for (int j = 1; j < 7; ++j) t[j + 1] = madc_hi_cc(a.w[j], bi, t[j + 1]);
     t[8] = madc_hi(a.w[7], bi, t[8]);
     // t += m p with m = t_0 (-p^-1) mod 2^32, which clears word 0; shift.
+    const uint32_t m = t[0] * F::ninv;
+    t[0] = mad_lo_cc(m, F::p(0), t[0]);
+#pragma unroll
+    for (int j = 1; j < 8; ++j) t[j] = madc_lo_cc(m, F::p(j), t[j]);
+    t[8] = addc(t[8], 0);
+    t[1] = mad_hi_cc(m, F::p(0), t[1]);
+#pragma unroll
+    for (int j = 1; j < 7; ++j) t[j + 1] = madc_hi_cc(m, F::p(j), t[j + 1]);
+    t[8] = madc_hi(m, F::p(7), t[8]);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) t[j] = t[j + 1];
+    t[8] = 0;
+  }
+  fe r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.w[j] = t[j];
+  return r;
+}
+
+// Montgomery reduction (t + M p) / R of a 9-word t, with the unique M < R:
+// the reduction half of each CIOS step, eight times.  Needs
+// t + 2^32 p < 2^288 (then every step fits 9 words); the result is
+// < t / R + p.
+template <class F>
+PT_FN fe redc9(uint32_t (&t)[9]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
     const uint32_t m = t[0] * F::ninv;
     t[0] = mad_lo_cc(m, F::p(0), t[0]);
 #pragma unroll
@@ -304,10 +344,11 @@ PT_FN fe fe_zero() {
   return r;
 }
 
+template <class F>
 PT_FN fe fe_one() {
   fe r;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) r.w[j] = Fp254::one(j);
+  for (int j = 0; j < 8; ++j) r.w[j] = F::one(j);
   return r;
 }
 
@@ -324,13 +365,15 @@ PT_FN void store_fe(uint32_t* p, int64_t i, int64_t stride, const fe& v) {
 }
 
 // ---------------------------------------------------------------------------
-// Points: homogeneous projective (X : Y : Z), identity (0 : 1 : 0)
+// Points: homogeneous projective (X : Y : Z), identity (0 : 1 : 0), over the
+// base field F (BN254's Fp by default; mul_b3 is BN254's 3b = 9)
 // ---------------------------------------------------------------------------
 struct xyz {
   fe x, y, z;
 };
 
-PT_FN xyz pt_identity() { return {fe_zero(), fe_one(), fe_zero()}; }
+template <class F = Fp254>
+PT_FN xyz pt_identity() { return {fe_zero(), fe_one<F>(), fe_zero()}; }
 
 PT_FN xyz pt_select(bool c, const xyz& a, const xyz& b) {
   return {select(c, a.x, b.x), select(c, a.y, b.y), select(c, a.z, b.z)};
@@ -348,11 +391,12 @@ PT_FN void store_pt(uint32_t* x, uint32_t* y, uint32_t* z, int64_t i,
   store_fe(z, i, stride, v.z);
 }
 
-#define PTT_M(a, b) mont_mul<Fp254>(a, b)
-#define PTT_A(a, b) add_mod<Fp254>(a, b)
-#define PTT_S(a, b) sub_mod<Fp254>(a, b)
+#define PTT_M(a, b) mont_mul<F>(a, b)
+#define PTT_A(a, b) add_mod<F>(a, b)
+#define PTT_S(a, b) sub_mod<F>(a, b)
 
 // Complete addition (RCB Algorithm 7, a = 0): 12M + 2*b3.
+template <class F = Fp254>
 PT_FN xyz pt_add(const xyz& p, const xyz& q) {
   fe t0 = PTT_M(p.x, q.x);
   fe t1 = PTT_M(p.y, q.y);
@@ -361,10 +405,10 @@ PT_FN xyz pt_add(const xyz& p, const xyz& q) {
   fe t4 = PTT_S(PTT_M(PTT_A(p.y, p.z), PTT_A(q.y, q.z)), PTT_A(t1, t2));
   fe t5 = PTT_S(PTT_M(PTT_A(p.x, p.z), PTT_A(q.x, q.z)), PTT_A(t0, t2));
   t0 = PTT_A(PTT_A(t0, t0), t0);
-  t2 = mul_b3<Fp254>(t2);
+  t2 = mul_b3<F>(t2);
   fe z3 = PTT_A(t1, t2);
   t1 = PTT_S(t1, t2);
-  t5 = mul_b3<Fp254>(t5);
+  t5 = mul_b3<F>(t5);
   xyz r;
   r.x = PTT_S(PTT_M(t3, t1), PTT_M(t4, t5));
   r.y = PTT_A(PTT_M(t1, z3), PTT_M(t5, t0));
@@ -373,6 +417,7 @@ PT_FN xyz pt_add(const xyz& p, const xyz& q) {
 }
 
 // Complete mixed addition (RCB Algorithm 8, a = 0): 11M + 2*b3; q affine.
+template <class F = Fp254>
 PT_FN xyz pt_madd(const xyz& p, const fe& qx, const fe& qy) {
   fe t0 = PTT_M(p.x, qx);
   fe t1 = PTT_M(p.y, qy);
@@ -380,10 +425,10 @@ PT_FN xyz pt_madd(const xyz& p, const fe& qx, const fe& qy) {
   fe t4 = PTT_A(PTT_M(qy, p.z), p.y);
   fe t5 = PTT_A(PTT_M(qx, p.z), p.x);
   t0 = PTT_A(PTT_A(t0, t0), t0);
-  fe t2 = mul_b3<Fp254>(p.z);
+  fe t2 = mul_b3<F>(p.z);
   fe z3 = PTT_A(t1, t2);
   t1 = PTT_S(t1, t2);
-  t5 = mul_b3<Fp254>(t5);
+  t5 = mul_b3<F>(t5);
   xyz r;
   r.x = PTT_S(PTT_M(t3, t1), PTT_M(t4, t5));
   r.y = PTT_A(PTT_M(t1, z3), PTT_M(t5, t0));
@@ -392,12 +437,13 @@ PT_FN xyz pt_madd(const xyz& p, const fe& qx, const fe& qy) {
 }
 
 // Complete doubling (RCB Algorithm 9, a = 0): 6M + 2S + 1*b3.
+template <class F = Fp254>
 PT_FN xyz pt_dbl(const xyz& p) {
   fe t0 = PTT_M(p.y, p.y);
   fe z3 = PTT_A(PTT_A(t0, t0), PTT_A(t0, t0));
   z3 = PTT_A(z3, z3);
   fe t1 = PTT_M(p.y, p.z);
-  fe t2 = mul_b3<Fp254>(PTT_M(p.z, p.z));
+  fe t2 = mul_b3<F>(PTT_M(p.z, p.z));
   fe x3 = PTT_M(t2, z3);
   fe y3 = PTT_A(t0, t2);
   z3 = PTT_M(t1, z3);

@@ -18,9 +18,8 @@ from typing import NamedTuple
 
 import torch
 
-from panda_tpu.curves.config import CurveSpec
-
 from ..fields import mont
+from .config import CurveSpec
 
 
 class ProjPoint(NamedTuple):

@@ -29,11 +29,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from panda_tpu.fields.config import LIMB_BITS as JAX_LIMB_BITS
-from panda_tpu.fields.config import FieldSpec
+from .config import FieldSpec
 
 LIMB = 16
 MASK = (1 << LIMB) - 1
+
+# The JAX package's limb width (15-bit limbs, R_jax = 2^(15 L) >= 4096 p),
+# needed only to carry its arrays across (from_jax_limbs / to_jax_limbs).
+JAX_LIMB_BITS = 15
 
 
 def n_words(spec: FieldSpec) -> int:
@@ -115,26 +118,35 @@ def _norm(t: torch.Tensor):
 # L16 arithmetic (values in [0, 2p) unless stated)
 # ---------------------------------------------------------------------------
 
-def mul16(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Montgomery product a b R^-1 mod p; output < 2p for inputs < 2p.
-
-    Exact for any inputs < R whose result fits (e.g. a < R, b = 1 gives a
-    result <= p): every column stays below 2^40."""
-    c = _consts(spec, a.device)
-    a, b = torch.broadcast_tensors(a, b)
-    L = a.shape[0]
-    batch = tuple(a.shape[1:])
-    nb = len(batch)
-    prod = (a.unsqueeze(1) * b.unsqueeze(0)).reshape((L * L,) + batch)
-    t = a.new_zeros((2 * L + 1,) + batch)
-    t.index_add_(0, c.diag, prod)
-    p = _col(c.p, nb)
+def redc16(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
+    """Montgomery reduction (t + M p) / R with the unique M < R, for
+    (>= 2L + 1, *batch) int64 columns of t < R p (normalised or not, each
+    column below 2^40); the result is < t / R + p, as L limbs.  ``t`` is
+    updated in place."""
+    c = _consts(spec, t.device)
+    L = c.p.shape[0]
+    p = _col(c.p, t.dim() - 1)
     for i in range(L):
         m = (t[i] * c.ninv) & MASK
         t[i:i + L] += m * p
         t[i + 1] += t[i] >> LIMB
     out, _ = _norm(t[L:])
     return out[:L]
+
+
+def mul16(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product a b R^-1 mod p; output < 2p for inputs < 2p.
+
+    Exact for any inputs < R whose result fits (e.g. a < R, b < p gives a
+    result < 2p): every column stays below 2^40."""
+    c = _consts(spec, a.device)
+    a, b = torch.broadcast_tensors(a, b)
+    L = a.shape[0]
+    batch = tuple(a.shape[1:])
+    prod = (a.unsqueeze(1) * b.unsqueeze(0)).reshape((L * L,) + batch)
+    t = a.new_zeros((2 * L + 1,) + batch)
+    t.index_add_(0, c.diag, prod)
+    return redc16(spec, t)
 
 
 def _pick(cand: torch.Tensor, use_second: torch.Tensor) -> torch.Tensor:
@@ -291,6 +303,22 @@ def words_tensor(w: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(w.view(np.int32)).to(device)
 
 
+def bytes_to_tensor(spec: FieldSpec, data, device=None) -> torch.Tensor:
+    """LE byte blob -> (W, N) int32 words on ``device``; the bytes go over
+    as they are, (N, W), and the transpose runs on the device."""
+    raw = np.frombuffer(data, dtype=np.uint8)
+    W = n_words(spec)
+    if raw.size % (4 * W):
+        raise ValueError(f"byte length {raw.size} not a multiple of {4 * W}")
+    rows = torch.from_numpy(raw.view("<i4").reshape(-1, W).copy())
+    return rows.to(device).t().contiguous()
+
+
+def tensor_to_bytes(w: torch.Tensor) -> bytes:
+    """(W, N) int32 words -> LE bytes, transposed on the tensor's device."""
+    return w.t().contiguous().cpu().numpy().astype("<i4", copy=False).tobytes()
+
+
 def ints_to_words(spec: FieldSpec, values) -> np.ndarray:
     W = n_words(spec)
     out = np.zeros((W, len(values)), dtype=np.uint32)
@@ -313,12 +341,21 @@ def words_to_ints(w) -> list:
     return vals
 
 
+def jax_limbs(spec: FieldSpec) -> int:
+    """The JAX package's limb count for ``spec``: the least L with
+    2^(15 L) >= 4096 p."""
+    n = -(-spec.bits // JAX_LIMB_BITS)
+    while (1 << (JAX_LIMB_BITS * n)) < 4096 * spec.modulus:
+        n += 1
+    return n
+
+
 def from_jax_limbs(spec: FieldSpec, arr, device=None) -> torch.Tensor:
     """The JAX package's (L, N) 15-bit-limb Montgomery array (R = 2^(15L))
     -> the port's (W, N) words (R = 2^(8 n_bytes)), canonical."""
     a = np.asarray(arr, dtype=np.uint64)
     p = spec.modulus
-    k = pow(spec.r, -1, p) * radix(spec) % p
+    k = pow(1 << (JAX_LIMB_BITS * jax_limbs(spec)), -1, p) * radix(spec) % p
     vals = [0] * a.shape[1]
     for i in range(a.shape[0]):
         for j, x in enumerate(a[i].tolist()):
@@ -328,12 +365,12 @@ def from_jax_limbs(spec: FieldSpec, arr, device=None) -> torch.Tensor:
 
 def to_jax_limbs(spec: FieldSpec, w) -> np.ndarray:
     """Inverse of :func:`from_jax_limbs`: canonical 15-bit limbs, R_jax."""
-    p = spec.modulus
-    k = pow(radix(spec), -1, p) * spec.r % p
+    p, L = spec.modulus, jax_limbs(spec)
+    k = pow(radix(spec), -1, p) * (1 << (JAX_LIMB_BITS * L)) % p
     vals = [v * k % p for v in words_to_ints(w)]
-    out = np.zeros((spec.n_limbs, len(vals)), dtype=np.uint32)
+    out = np.zeros((L, len(vals)), dtype=np.uint32)
     mask = (1 << JAX_LIMB_BITS) - 1
     for j, v in enumerate(vals):
-        for i in range(spec.n_limbs):
+        for i in range(L):
             out[i, j] = (v >> (JAX_LIMB_BITS * i)) & mask
     return out

@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build" / "panda_tpu_torch"
-KERNELS = ("digits", "hist", "phase_a", "point_ops", "wscan")
+KERNELS = ("digits", "hist", "phase_a", "point_ops", "wscan", "fmul", "dft")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -141,8 +141,11 @@ def on_cpu(name: str, t: torch.Tensor) -> bool:
     raise ValueError(f"{name}: unsupported device {t.device}")
 
 
-def require_bn254(name: str, curve) -> None:
-    if curve.name != "bn254":
+def require_bn254(name: str, spec, want: str = "bn254") -> None:
+    """Raise unless ``spec`` (a curve, or a field) is the one the kernel is
+    built for: the BN254 curve by default, ``"bn254_fr"`` for the NTT's."""
+    if spec.name != want:
         raise NotImplementedError(
-            f"{name}: the CUDA kernels cover BN254 only; {curve.name} on the "
-            "GPU is the ROADMAP item \"BLS12-377 and BLS12-381 on the device\"")
+            f"{name}: the CUDA kernels cover BN254 only ({want}); {spec.name} "
+            "on the GPU is the ROADMAP item \"BLS12-377 and BLS12-381 on the "
+            "device\"")

@@ -11,9 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from panda_tpu.fields.config import FieldSpec
-
 from ..fields import mont
+from ..fields.config import FieldSpec
 from . import _ext
 from ._ext import I32, I64, P
 
@@ -48,10 +47,7 @@ def signed_digits(spec: FieldSpec, scalars: torch.Tensor, c: int, W: int):
         raise ValueError("window width must be in [1, 16]")
     if _ext.on_cpu("signed_digits", scalars):
         return signed_digits_plain(spec, scalars, c, W)
-    if spec.name != "bn254_fr":
-        raise NotImplementedError(
-            f"signed_digits: the CUDA kernel covers BN254 Fr only, not "
-            f"{spec.name} (ROADMAP: BLS12-377 and BLS12-381 on the device)")
+    _ext.require_bn254("signed_digits", spec, "bn254_fr")
     scalars = scalars.contiguous()
     _ext.check_cuda("signed_digits", scalars)
     if scalars.shape[0] != mont.n_words(spec):

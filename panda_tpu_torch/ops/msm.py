@@ -26,13 +26,12 @@ from typing import NamedTuple
 
 import torch
 
-from panda_tpu.curves.config import CurveSpec
-from panda_tpu.fields.config import FieldSpec
-from panda_tpu.reference import curve_ref
-
 from ..curves import point as cp
+from ..curves.config import CurveSpec
 from ..curves.point import ProjPoint
 from ..fields import mont
+from ..fields.config import FieldSpec
+from ..reference import curve_ref
 from . import digits as digits_ops
 from . import hist as hist_ops
 from . import phase_a

@@ -19,9 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from panda_tpu.curves.config import CurveSpec
-
 from ..curves import point as cp
+from ..curves.config import CurveSpec
 from ..curves.point import AffinePoint, ProjPoint
 from ..fields import mont
 from . import _ext

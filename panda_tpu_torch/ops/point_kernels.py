@@ -15,9 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from panda_tpu.curves.config import CurveSpec
-
 from ..curves import point as cp
+from ..curves.config import CurveSpec
 from ..curves.point import AffinePoint, ProjPoint
 from . import _ext
 from ._ext import I64, P

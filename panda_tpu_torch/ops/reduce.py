@@ -13,9 +13,8 @@ import math
 
 import torch
 
-from panda_tpu.curves.config import CurveSpec
-
 from ..curves import point as cp
+from ..curves.config import CurveSpec
 from ..curves.point import ProjPoint
 from . import point_kernels
 

@@ -1,10 +1,11 @@
-"""Device/session manager, the MSM half.
+"""Device/session manager.
 
 Counterpart of ``panda_tpu/runtime/manager.py``: a ``PandaManager`` holds
-the session's ``torch.device`` and its cached inputs.  Bases and scalars
-arrive as wire bytes (LE Montgomery, R = 2^256 for BN254), which are already
-the port's internal form: ingest reinterprets the bytes as (8, n) int32
-words and, for bases, reduces each coordinate to [0, p).
+the session's ``torch.device``, its cached MSM inputs and its NTT tables.
+Bases, scalars and NTT data arrive as wire bytes (LE Montgomery, R = 2^256
+for BN254), which are already the port's internal form: ingest reinterprets
+the bytes as (8, n) int32 words and, for bases, reduces each coordinate to
+[0, p).
 """
 
 from __future__ import annotations
@@ -14,10 +15,10 @@ from dataclasses import dataclass, field
 
 import torch
 
-from panda_tpu.curves.config import BN254, CURVES, CurveSpec
-from panda_tpu.runtime.errors import PandaError, PandaRuntimeError
-
+from ..curves.config import BN254, CURVES, CurveSpec
 from ..fields import mont
+from ..ops import ntt as ntt_ops
+from .errors import PandaError, PandaRuntimeError
 
 
 class InitUnitType(enum.Enum):
@@ -71,6 +72,8 @@ class PandaManager:
     d_bases: list = field(default_factory=list)      # (px, py) word tensors
     d_scalars: list = field(default_factory=list)    # (8, n) word tensors
     device: torch.device | None = None
+    _ntt_tables: dict = field(default_factory=dict)
+    _ntt_omega_override: int | None = None
     _initialized: bool = False
 
     # -- lifecycle ---------------------------------------------------------
@@ -86,14 +89,15 @@ class PandaManager:
 
     @classmethod
     def init_all(cls, device_id: int, unit: InitUnitType,
-                 bases: list | None = None, curve: str | CurveSpec = BN254,
+                 bases: list | None = None,
+                 omega_bytes: bytes | None = None,
+                 curve: str | CurveSpec = BN254,
                  device=None) -> "PandaManager":
         gm = cls.new(device_id, curve, device)
-        if unit in (InitUnitType.NTT, InitUnitType.ALL):
-            raise PandaRuntimeError(PandaError.INVALID_CONFIGURATION,
-                                    "the NTT is not ported yet")
-        if unit == InitUnitType.MSM and bases is not None:
+        if unit in (InitUnitType.MSM, InitUnitType.ALL) and bases is not None:
             gm.init_msm(bases)
+        if unit in (InitUnitType.NTT, InitUnitType.ALL):
+            gm.init_ntt(omega_bytes)
         return gm
 
     def init_hardware(self, device_id: int, device=None) -> None:
@@ -150,6 +154,33 @@ class PandaManager:
         return (self.init_msm_cached_bases(bases_blob),
                 self.init_msm_cached_scalars(scalars_blob))
 
+    # -- NTT ---------------------------------------------------------------
+    def init_ntt(self, omega_bytes: bytes | None = None) -> None:
+        """Record the session's root (Montgomery LE bytes; default: the
+        field's canonical root per size); tables build lazily per log_n."""
+        self._require_init()
+        if omega_bytes is not None:
+            self._ntt_omega_override = self.root_from_bytes(omega_bytes)
+        self._ntt_tables.clear()
+
+    def root_from_bytes(self, omega_bytes: bytes) -> int:
+        """A root given as Montgomery LE bytes -> its plain integer."""
+        fr = self.curve.fr
+        w = mont.words_to_ints(mont.bytes_to_words(fr, omega_bytes))[0]
+        return fr.from_wire_int(w)
+
+    def ntt_tables(self, log_n: int,
+                   omega_int: int | None = None) -> ntt_ops.NttTables:
+        """The cached tables for size 2^log_n and root ``omega_int`` (plain
+        integer; default: the session's root, else the canonical one)."""
+        fr = self.curve.fr
+        omega = (omega_int if omega_int is not None
+                 else self._ntt_omega_override)
+        key = (fr.name, log_n, omega)
+        if key not in self._ntt_tables:
+            self._ntt_tables[key] = ntt_ops.make_tables(fr, log_n, omega)
+        return self._ntt_tables[key]
+
     # -- config and lifecycle tail ----------------------------------------
     def set_config(self, coordinate_type: ResultCoordinateType) -> None:
         """Jacobian vs Projective output.  Results are affine-normalised
@@ -163,6 +194,7 @@ class PandaManager:
     def deinit(self) -> None:
         self.d_bases.clear()
         self.d_scalars.clear()
+        self._ntt_tables.clear()
 
     destroy = deinit
 

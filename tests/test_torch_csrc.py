@@ -21,13 +21,14 @@ import torch
 
 torch.set_num_threads(1)
 
-from panda_tpu.curves.config import BN254
-from panda_tpu.fields.config import BN254_FP, BN254_FR
-from panda_tpu.reference import curve_ref
 from panda_tpu_torch.curves import point as cp
+from panda_tpu_torch.curves.config import BN254
 from panda_tpu_torch.curves.point import AffinePoint, ProjPoint
 from panda_tpu_torch.fields import mont
-from panda_tpu_torch.ops import _ext, digits, hist, phase_a, point_kernels
+from panda_tpu_torch.fields.config import BN254_FP, BN254_FR
+from panda_tpu_torch.ops import (_ext, digits, fmul, hist, ntt_fused, phase_a,
+                                 point_kernels)
+from panda_tpu_torch.reference import curve_ref
 
 CSRC = _ext.CSRC
 HARNESS = r"""
@@ -36,6 +37,8 @@ HARNESS = r"""
 #include "hist.cu"
 #include "phase_a.cu"
 #include "wscan.cu"
+#include "fmul.cu"
+#include "dft.cu"
 using namespace ptt;
 typedef const uint32_t* In;
 typedef uint32_t* Out;
@@ -78,6 +81,15 @@ void h_wscan(In bx, In by, In bz, Out rx, Out ry, Out rz, Out wx, Out wy,
              Out wz, int64_t N, int64_t S) {
   for (int64_t c = 0; c < N; ++c)
     wscan_col(bx, by, bz, rx, ry, rz, wx, wy, wz, c, N, S);
+}
+void h_fmul(In a, In b, Out r, int64_t n, int canonical_out) {
+  for (int64_t i = 0; i < n; ++i) fmul_elem(a, b, r, i, n, canonical_out);
+}
+void h_dft(In x, In mat, Out out, int64_t nb, int K, int canonical_out) {
+  for (int64_t c = 0; c < nb; ++c)
+    for (int k = 0; k < K; ++k)
+      store_fe(out + (int64_t)k * nb, c, (int64_t)K * nb,
+               dft_elem(x + c, nb, mat, K, k, canonical_out));
 }
 }
 """
@@ -154,10 +166,10 @@ def test_field_constants_match_field_config():
     for struct, spec in (("Fp254", BN254_FP), ("Fr254", BN254_FR)):
         p = spec.modulus
         assert arr(struct, "p") == p
+        assert arr(struct, "p2") == 2 * p
+        assert arr(struct, "one") == R % p
         assert ninv(struct) == (-pow(p, -1, 1 << 32)) % (1 << 32)
-    assert arr("Fp254", "p2") == 2 * BN254_FP.modulus
-    assert arr("Fp254", "one") == R % BN254_FP.modulus
-    assert 4 * BN254_FP.modulus < R and 4 * BN254_FR.modulus < R
+        assert 4 * p < R
 
 
 @pytest.mark.parametrize("op", ["mul", "add", "sub"])
@@ -265,3 +277,49 @@ def test_weighted_scan_bit_identical(host):
     _call(host.h_wscan, *map(_np, b), *outs, N, S)
     for o, e in zip(outs, (*run, *wsum)):
         np.testing.assert_array_equal(o.view(np.int32), _np(e))
+
+
+def test_fmul_bit_identical(host):
+    """fmul.cu's body against the plain version: a, b < 2r give < 2r (and
+    canonical with canonical_out); a < R times the plain 1 gives <= r."""
+    fr = BN254_FR
+    r = fr.modulus
+    rng = random.Random(21)
+    edge = [0, 1, r - 1, r, r + 1, 2 * r - 1]
+    a = edge * len(edge) + [rng.randrange(2 * r) for _ in range(100)]
+    b = [e for e in edge for _ in edge] + [rng.randrange(2 * r)
+                                           for _ in range(100)]
+    wide = [(1 << 256) - 1, 2 * r, 5 * r] + [rng.randrange(1 << 256)
+                                             for _ in range(30)]
+    cases = [(a, b), (wide, [1] * len(wide))]
+    for (av, bv), canon in [(c, k) for c in cases for k in (0, 1)]:
+        A, B = _words(fr, av), _words(fr, bv)
+        out = np.empty_like(_np(A))
+        _call(host.h_fmul, _np(A), _np(B), out, len(av), ("i32", canon))
+        np.testing.assert_array_equal(
+            out.view(np.int32), _np(fmul.fmul_plain(fr, A, B, bool(canon))))
+        limit = r if canon else (r + 1 if bv[0] == 1 else 2 * r)
+        assert all(v < limit for v in mont.words_to_ints(out))
+
+
+@pytest.mark.parametrize("log_k", [1, 3, 5])
+def test_dft_bit_identical(host, log_k):
+    """dft.cu's body against the plain version, forward and with a scale
+    and the canonical pass, on words that include values >= r."""
+    fr = BN254_FR
+    r = fr.modulus
+    K, nb = 1 << log_k, 6
+    rng = random.Random(log_k)
+    vals = [rng.randrange(1 << 256) for _ in range(K * nb)]
+    vals[:3] = [(1 << 256) - 1, r, 2 * r - 1]
+    x = _words(fr, vals).reshape(8, K, nb).contiguous()
+    w = fr.root_of_unity(log_k)
+    for scale, canon in ((1, 0), (pow(1 << 11, -1, r), 1)):
+        mat = ntt_fused.dft_matrix(fr, log_k, w, scale)
+        out = np.empty((8, K, nb), np.uint32)
+        _call(host.h_dft, _np(x), np.ascontiguousarray(mat.numpy()), out, nb,
+              ("i32", K), ("i32", canon))
+        want = ntt_fused.dft_apply_fused_plain(fr, x, log_k, mat, bool(canon))
+        np.testing.assert_array_equal(out.view(np.int32), _np(want))
+        assert all(v < (r if canon else 2 * r)
+                   for v in mont.words_to_ints(out.reshape(8, -1)))

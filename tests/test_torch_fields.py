@@ -3,7 +3,9 @@ package (panda_tpu.fields.mont), on the same values.
 
 The two packages use different Montgomery radices (2^256 here, 2^(15L)
 there); ``from_jax_limbs``/``to_jax_limbs`` carry values between them.  All
-comparisons are exact: field values equal after canonicalisation.
+comparisons are exact: field values equal after canonicalisation.  The
+port's own copies of the field and curve parameters and error codes equal
+the JAX package's.
 """
 
 import random
@@ -16,13 +18,20 @@ import torch
 
 torch.set_num_threads(1)
 
+from panda_tpu.curves import config as jcurves
 from panda_tpu.fields import codec
+from panda_tpu.fields import config as jfields
 from panda_tpu.fields import mont as jmont
-from panda_tpu.fields.config import BN254_FP, BN254_FR
-from panda_tpu.reference.field_ref import F
+from panda_tpu.runtime import errors as jerrors
+from panda_tpu_torch.curves import config as curves
+from panda_tpu_torch.fields import config as fields
 from panda_tpu_torch.fields import mont
+from panda_tpu_torch.fields.config import BN254_FP, BN254_FR
+from panda_tpu_torch.reference.field_ref import F
+from panda_tpu_torch.runtime import errors
 
 SPECS = [BN254_FP, BN254_FR]
+JAX_SPECS = {s.name: s for s in jfields.ALL_FIELDS}
 
 
 def _case(spec, seed, n=48):
@@ -55,8 +64,11 @@ def _plain(spec, words):
 
 
 def _jax(spec, vals):
-    return jnp.asarray(codec.ints_to_limbs(spec, [spec.to_mont_int(v)
-                                                  for v in vals]))
+    """Plain ints -> the JAX package's Montgomery limbs for the port's
+    ``spec``."""
+    js = JAX_SPECS[spec.name]
+    return jnp.asarray(codec.ints_to_limbs(js, [js.to_mont_int(v)
+                                                for v in vals]))
 
 
 @pytest.mark.parametrize("spec", SPECS, ids=lambda s: s.name)
@@ -74,7 +86,8 @@ def test_ops_match_oracle_and_jax(spec, op):
     assert got == want
     jfn = {"mul": jmont.mont_mul, "add": jmont.add_mod,
            "sub": jmont.sub_mod}[op]
-    jout = jax.jit(lambda x, y: jfn(spec, x, y))(_jax(spec, a), _jax(spec, b))
+    js = JAX_SPECS[spec.name]
+    jout = jax.jit(lambda x, y: jfn(js, x, y))(_jax(spec, a), _jax(spec, b))
     assert _plain(spec, mont.from_jax_limbs(spec, np.asarray(jout))) == want
 
 
@@ -112,8 +125,10 @@ def test_jax_limbs_round_trip(spec):
     back = mont.to_jax_limbs(spec, port)
     np.testing.assert_array_equal(back, j)
     # a lazily reduced JAX value (+p) maps to the same canonical words
-    lazy = codec.ints_to_limbs(spec, [spec.to_mont_int(v) + spec.modulus
-                                      for v in a])
+    js = JAX_SPECS[spec.name]
+    assert mont.jax_limbs(spec) == js.n_limbs
+    lazy = codec.ints_to_limbs(js, [js.to_mont_int(v) + spec.modulus
+                                    for v in a])
     assert torch.equal(mont.from_jax_limbs(spec, lazy), port)
 
 
@@ -127,3 +142,43 @@ def test_bytes_words_round_trip():
     assert mont.words_to_bytes(spec, w) == blob
     with pytest.raises(ValueError):
         mont.bytes_to_words(spec, blob[:-1])
+
+
+@pytest.mark.parametrize("i", range(len(fields.ALL_FIELDS)),
+                         ids=[f.name for f in fields.ALL_FIELDS])
+def test_field_copy_matches_jax(i):
+    """Each copied field: the same name, modulus, generator, two-adicity,
+    widths, wire radix, wire conversions and roots of unity."""
+    mine, theirs = fields.ALL_FIELDS[i], jfields.ALL_FIELDS[i]
+    assert mine is not theirs
+    keys = ("name", "modulus", "generator", "two_adicity", "bits", "n_bytes",
+            "wire_r")
+    assert [getattr(mine, k) for k in keys] == [getattr(theirs, k)
+                                                for k in keys]
+    rng = random.Random(i)
+    for v in [0, 1, mine.modulus - 1] + [rng.randrange(mine.modulus)
+                                         for _ in range(5)]:
+        assert mine.to_wire_int(v) == theirs.to_wire_int(v)
+        assert mine.from_wire_int(v) == theirs.from_wire_int(v)
+    if not mine.two_adicity:
+        for spec in (mine, theirs):
+            with pytest.raises(ValueError):
+                spec.root_of_unity(1)
+        return
+    for log_n in range(0, mine.two_adicity + 1, 7):
+        assert mine.root_of_unity(log_n) == theirs.root_of_unity(log_n)
+
+
+def test_curve_and_error_copies_match_jax():
+    assert list(curves.CURVES) == list(jcurves.CURVES)
+    for name, c in curves.CURVES.items():
+        j = jcurves.CURVES[name]
+        assert (c.name, c.fp.name, c.fr.name, c.b, c.b3, c.gen_x, c.gen_y) \
+            == (j.name, j.fp.name, j.fr.name, j.b, j.b3, j.gen_x, j.gen_y)
+        p = c.fp.modulus
+        assert (c.gen_y ** 2 - c.gen_x ** 3 - c.b) % p == 0
+    assert [(e.name, int(e)) for e in errors.PandaError] == \
+        [(e.name, int(e)) for e in jerrors.PandaError]
+    e = errors.PandaRuntimeError(errors.PandaError.UNSUPPORTED_CURVE, "x")
+    assert str(e) == str(jerrors.PandaRuntimeError(
+        jerrors.PandaError.UNSUPPORTED_CURVE, "x"))

@@ -19,18 +19,20 @@ import torch
 torch.set_num_threads(1)
 
 from panda_tpu.curves import point as jcp
-from panda_tpu.curves.config import BN254
+from panda_tpu.curves.config import BN254 as JBN254
 from panda_tpu.fields import codec
 from panda_tpu.ops import hist_pallas
 from panda_tpu.ops import msm as jmsm
 from panda_tpu.ops import reduce as jred
-from panda_tpu.reference import curve_ref
 from panda_tpu_torch.curves import point as cp
+from panda_tpu_torch.curves.config import BN254
 from panda_tpu_torch.curves.point import AffinePoint, ProjPoint
 from panda_tpu_torch.fields import mont
 from panda_tpu_torch.ops import hist, msm, reduce
+from panda_tpu_torch.reference import curve_ref
 
-FP, FR = BN254.fp, BN254.fr
+FP, FR = BN254.fp, BN254.fr            # the port's specs
+JFP, JFR = JBN254.fp, JBN254.fr        # the JAX package's
 P = FP.modulus
 
 
@@ -53,8 +55,8 @@ def port_affine(pt: ProjPoint):
 
 
 def jax_affine(pt):
-    return _affine(*(codec.limbs_to_ints(FP, np.asarray(a).reshape(
-        FP.n_limbs, -1)) for a in pt))
+    return _affine(*(codec.limbs_to_ints(JFP, np.asarray(a).reshape(
+        JFP.n_limbs, -1)) for a in pt))
 
 
 def _proj_ints(n, seed):
@@ -75,8 +77,8 @@ def to_port(vals):
 
 
 def to_jax(vals):
-    return jnp.asarray(codec.ints_to_limbs(FP, [FP.to_mont_int(v)
-                                                for v in vals]))
+    return jnp.asarray(codec.ints_to_limbs(JFP, [JFP.to_mont_int(v)
+                                                 for v in vals]))
 
 
 def _both(points):
@@ -92,11 +94,11 @@ def test_signed_digits_match_jax():
     vals = [0, 1, r - 1] + [rng.randrange(r) for _ in range(n - 3)]
     R = mont.radix(FR)
     port = mont.words_tensor(mont.ints_to_words(FR, [v * R % r for v in vals]))
-    jsc = jnp.asarray(codec.ints_to_limbs(FR, [FR.to_mont_int(v)
-                                               for v in vals]))
+    jsc = jnp.asarray(codec.ints_to_limbs(JFR, [JFR.to_mont_int(v)
+                                                for v in vals]))
     mags, negs = msm.signed_digit_arrays(FR, port, c)
     jm, jn = jax.jit(lambda s: jmsm.signed_digit_arrays(
-        FR, s, c, kernels="off"))(jsc)
+        JFR, s, c, kernels="off"))(jsc)
     np.testing.assert_array_equal(mags.numpy().astype(np.uint32),
                                   np.asarray(jm))
     np.testing.assert_array_equal(negs.numpy(), np.asarray(jn))
@@ -125,17 +127,17 @@ def test_point_ops_match_jax():
     qi = pi[:2] + [(x, (-y) % P, z)] + _proj_ints(5, 22)[1:] + [(0, 1, 0)]
     (p, jp), (q, jq) = _both(pi), _both(qi)
     got = cp.add(BN254, p, q)
-    want = jax.jit(lambda a, b: jcp.add(BN254, a, b))(jp, jq)
+    want = jax.jit(lambda a, b: jcp.add(JBN254, a, b))(jp, jq)
     assert port_affine(got) == jax_affine(want)
     assert port_affine(got)[2] is None
     aff = [curve_ref.random_point(BN254, random.Random(s)) for s in range(8)]
     xs, ys = zip(*aff)
     got = cp.madd(BN254, p, AffinePoint(to_port(xs), to_port(ys)))
-    want = jax.jit(lambda a, b: jcp.madd(BN254, a, b))(
+    want = jax.jit(lambda a, b: jcp.madd(JBN254, a, b))(
         jp, jcp.AffinePoint(to_jax(xs), to_jax(ys)))
     assert port_affine(got) == jax_affine(want)
     got = cp.dbl(BN254, p)
-    want = jax.jit(lambda a: jcp.dbl(BN254, a))(jp)
+    want = jax.jit(lambda a: jcp.dbl(JBN254, a))(jp)
     assert port_affine(got) == jax_affine(want)
     assert port_affine(got)[0] is None                  # 2 * identity
 
@@ -157,9 +159,9 @@ def bucket_case():
     jpx, jpy = (to_jax(v) for v in zip(*pts))
 
     def jfn(a, b, d, s):
-        bt = jmsm._bucket_tables(BN254, a, b, d, c, m, signs=s,
+        bt = jmsm._bucket_tables(JBN254, a, b, d, c, m, signs=s,
                                  kernels="off")
-        return bt, jred.weighted_window_sum(BN254, bt)
+        return bt, jred.weighted_window_sum(JBN254, bt)
 
     jbt, jws = jax.jit(jfn)(jpx, jpy, jnp.asarray(mags.astype(np.uint32)),
                             jnp.asarray(negs))

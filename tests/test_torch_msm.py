@@ -15,14 +15,16 @@ import torch
 
 torch.set_num_threads(1)
 
-from panda_tpu.curves.config import BN254
-from panda_tpu.reference import curve_ref
 from panda_tpu.runtime import api as japi
 from panda_tpu.runtime import manager as jmanager
-from panda_tpu.runtime.errors import PandaError, PandaRuntimeError
+from panda_tpu.runtime.errors import PandaError as JPandaError
+from panda_tpu.runtime.errors import PandaRuntimeError as JPandaRuntimeError
 from panda_tpu_torch import InitUnitType, PandaManager, ResultCoordinateType
+from panda_tpu_torch.curves.config import BN254
 from panda_tpu_torch.fields import mont
+from panda_tpu_torch.reference import curve_ref
 from panda_tpu_torch.runtime import api
+from panda_tpu_torch.runtime.errors import PandaError, PandaRuntimeError
 
 ROOT = Path(__file__).resolve().parent.parent
 N = 64
@@ -140,6 +142,12 @@ def test_error_codes(case, gm):
         api.msm_bn254(PandaManager.new(0, "bls12_377", device="cpu"),
                       case["sblob"], case["bases"])
     assert e.value.code == PandaError.UNSUPPORTED_CURVE
+    # the same codes as the JAX package's, by name
+    with pytest.raises(JPandaRuntimeError) as je:
+        japi.msm(case["jgm"], case["sblob"][:-1], case["bases"])
+    assert je.value.code.name == "INVALID_CONFIGURATION"
+    assert [(c.name, int(c)) for c in PandaError] == \
+        [(c.name, int(c)) for c in JPandaError]
 
 
 def test_msm_above_2_20_is_not_ported():
@@ -166,14 +174,42 @@ def _run(code_or_args, cwd):
                           capture_output=True, text=True, timeout=300)
 
 
+FOREIGN = ("import sys\n"
+           "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+           "('jax', 'panda_tpu')))\n")
+
+
 def test_package_imports_without_jax():
+    """The port loads neither jax nor any module of the JAX package."""
     res = _run(["-c", "import sys, panda_tpu_torch\n"
-                "from panda_tpu_torch import PandaManager\n"
-                "from panda_tpu_torch.runtime import api\n"
-                "from panda_tpu_torch.ops import _ext, msm\n"
-                "print('jax' in sys.modules)"], ROOT)
+                "from panda_tpu_torch import PandaManager, BN254, PandaError\n"
+                "from panda_tpu_torch.runtime import api, manager\n"
+                "from panda_tpu_torch.ops import _ext, msm, ntt\n"
+                "from panda_tpu_torch.reference import curve_ref, ntt_ref\n"
+                + FOREIGN], ROOT)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip() == "False"
+    assert res.stdout.strip() == "[]"
+
+
+def test_chip_smoke_imports_without_jax():
+    """chip_smoke.py, imported without running main(), and every module it
+    imports anywhere (its functions import lazily) load neither jax nor the
+    JAX package."""
+    res = _run(["-c", "import ast, importlib, sys\n"
+                "sys.path.insert(0, '.')\n"
+                "import chip_smoke\n"
+                "tree = ast.parse(open('chip_smoke.py').read())\n"
+                "mods = {n.module for n in ast.walk(tree)\n"
+                "        if isinstance(n, ast.ImportFrom)}\n"
+                "mods |= {a.name for n in ast.walk(tree)\n"
+                "         if isinstance(n, ast.Import) for a in n.names}\n"
+                "for m in sorted(mods):\n"
+                "    if m.startswith('panda_tpu_torch'):\n"
+                "        importlib.import_module(m)\n"
+                "print(sorted(m for m in mods if m.split('.')[0] in "
+                "('jax', 'panda_tpu')))\n" + FOREIGN], ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["[]", "[]"]
 
 
 def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
