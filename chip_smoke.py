@@ -93,7 +93,7 @@ def word_err(a, b) -> int:
 
 
 # Peak rates of one H100 SXM at its full 700 W limit.  Memory and int8
-# tensor cores: NVIDIA's data sheet (on-chip-measurement guide).  32-bit
+# tensor cores: NVIDIA's H100 data sheet.  32-bit
 # integer multiply-add: 64 per SM per clock (Hopper architecture white
 # paper) x 132 SMs x 1.98 GHz boost; every CIOS multiply is 264 of them
 # (8 x (16 + 1 + 16)), and the lo and hi halves count separately.
