@@ -6,29 +6,39 @@
 Phases, each of which raises on failure (the exit code is then non-zero):
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
-2. build the seven CUDA kernels from panda_tpu_torch/csrc, in parallel;
+2. build the eight CUDA kernels from panda_tpu_torch/csrc, in parallel;
 3. each kernel against its plain PyTorch version on the card, at its main
    path's shapes: the five MSM kernels at n = 2^16 points (c = 13, W = 20,
    D = 4096): exact equality for the digits and the histogram, point
    equality for the point ops, phase A (through the bucket tables it
-   yields) and the weighted scan; fmul at (8, 2^20) and the DFT at K = 32,
-   nb = 2^15 (the 2^20 NTT's levels), forward and with the inverse's scale
-   and the canonical pass: equal words.  Times from CUDA events, median of
-   a few runs, beside the least time the card could take (bytes over
-   3.35 TB/s or operations over the peak rate, the larger) and, where one
-   PyTorch call computes the same function, that call's time;
-4. the MSM slice: a PandaManager on cuda:0 with cached BN254 bases, then
-   api.msm_bn254_with_cached_bases at n = 2^16 and 2^20, every call held to
-   the pool-aggregated big-integer oracle; median, min and max host wall
-   time of 20 calls; the launch counters of its five kernels must be > 0;
-   then the NTT slice: api.ntt_bn254, api.intt and api.ntt_bn254_v1 (a
+   yields) and the weighted scan; fmul at (8, 2^20), the DFT at K = 32,
+   nb = 2^15 (the four-step 2^20 NTT's passes), forward and with the
+   inverse's scale and the canonical pass, and the radix-2 pass small_ntt
+   at K = 256, nb = 2^12 with its T1 table and at K = 64, nb = 2^14 (the
+   radix-2 2^20 NTT's passes), forward and with the inverse's scale and
+   the canonical store, on words that include values >= 2r: equal words,
+   for BN254 Fr and BLS12-377 Fr.  Times from CUDA events around a batch
+   of back-to-back calls, beside the least time the card could take (bytes
+   over 3.35 TB/s or operations over the peak rate, the larger) and, where
+   one PyTorch call computes the same function, that call's time.  The
+   BLS12-381 NTT and a BLS12-377 MSM on the card raise NotImplementedError;
+4. the main paths, each with every launch counter set to 0 just before it
+   and read after it (each of its kernels must have launched): the MSM
+   slice, api.msm_bn254_with_cached_bases at n = 2^16 and 2^20 with cached
+   bases, every call held to the pool-aggregated big-integer oracle, host
+   wall time of 20 calls; the NTT byte API with the four-step engine
+   (PANDA_NTT_IMPL=auto): api.ntt_bn254, api.intt and api.ntt_bn254_v1 (a
    non-default root) at 2^20 and 2^22, held to a bit-exact INTT roundtrip
    and 4 big-integer spot checks each, and at 2^12 to the NTT oracle byte
-   for byte; 20 timed calls (10 at 2^22) and the device time of the
-   transform alone; the fmul and dft counters must be > 0;
-5. where the time goes: the MSM call (both sizes) and the NTT call (2^20)
-   run stage by stage with a device synchronise around each stage, median,
-   min and max of 10 calls;
+   for byte; 20 timed calls (10 at 2^22) and the device time of run_ntt
+   alone; the same with the radix-2 engine (PANDA_NTT_IMPL=pallas), whose
+   bytes must equal the four-step engine's, and whose steady 2^20 call
+   must launch small_ntt and no dft; the BLS12-377 NTT with both engines,
+   at 2^12 against the oracle and at 2^20 (roundtrip, spot checks, 10
+   timed calls);
+5. where the time goes: the MSM call (both sizes) and the 2^20 NTT call of
+   each engine run stage by stage with a device synchronise around each
+   stage, median, min and max of 10 calls;
 6. the device's busy share of one call each, from torch.profiler.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
@@ -37,6 +47,7 @@ line is {"ok": true, "device": {...}}.  Inputs come from fixed seeds.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import random
@@ -72,17 +83,21 @@ def host_cpu_model() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs (CUDA events)."""
+    """Mean milliseconds of ``fn()`` over ``reps`` back-to-back calls
+    between one pair of CUDA events, after one warm-up call.  The host work
+    of each call (allocation, checks, the launch) overlaps the kernel
+    queued before it, so a short kernel is timed on the device, not on the
+    host, as long as its launches keep the queue full."""
     import torch
-    times = []
+    fn()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    a.record()
     for _ in range(reps):
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
         fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def word_err(a, b) -> int:
@@ -176,8 +191,8 @@ def kernel_checks(curve, n: int, device) -> dict:
     pm, pn = digits.signed_digits_plain(curve.fr, s, c, W)
     err = max(word_err(km, pm), word_err(kn.int(), pn.int()))
     record("digits", err,
-           cuda_ms(lambda: digits.signed_digits(curve.fr, s, c, W), 5),
-           cuda_ms(lambda: digits.signed_digits_plain(curve.fr, s, c, W), 3),
+           cuda_ms(lambda: digits.signed_digits(curve.fr, s, c, W), 20),
+           cuda_ms(lambda: digits.signed_digits_plain(curve.fr, s, c, W), 2),
            torch.equal(km, pm) and torch.equal(kn, pn),
            bound(n * 32 + W * n * 5, imad(n), IMAD_PER_S))
 
@@ -186,10 +201,10 @@ def kernel_checks(curve, n: int, device) -> dict:
     kh, ph = hist.hist_counts(km, D), hist.hist_counts_plain(km, D)
     offs = (km.clamp(0, D + 1).long() + torch.arange(
         W, device=device)[:, None] * (D + 2)).reshape(-1)
-    lib = cuda_ms(lambda: torch.bincount(offs, minlength=W * (D + 2)), 5)
+    lib = cuda_ms(lambda: torch.bincount(offs, minlength=W * (D + 2)), 20)
     record("hist", word_err(kh, ph),
-           cuda_ms(lambda: hist.hist_counts(km, D), 5),
-           cuda_ms(lambda: hist.hist_counts_plain(km, D), 3),
+           cuda_ms(lambda: hist.hist_counts(km, D), 20),
+           cuda_ms(lambda: hist.hist_counts_plain(km, D), 5),
            torch.equal(kh, ph), bound(W * n * 4 + W * D * 4, 0, IMAD_PER_S),
            lib)
 
@@ -207,9 +222,9 @@ def kernel_checks(curve, n: int, device) -> dict:
     err = max(word_err(a, b) for a, b in zip(kb, pb))
     record("phase_a", err,
            cuda_ms(lambda: phase_a.scan(curve, st.keys, st.sidx, px, py,
-                                        D + 1), 5),
+                                        D + 1), 10),
            cuda_ms(lambda: phase_a.scan_plain(curve, st.keys, st.sidx, px,
-                                              py, D + 1), 2), ok,
+                                              py, D + 1), 1), ok,
            bound(P * 8 + px.shape[1] * 64 + P * 100 + W * m * 100,
                  imad(11 * live), IMAD_PER_S))
 
@@ -218,19 +233,25 @@ def kernel_checks(curve, n: int, device) -> dict:
     q = ProjPoint(*(a.flip(-1).contiguous() for a in kb))
     idx = torch.arange(W * D, device=device).reshape(W, D) % px.shape[1]
     qa = AffinePoint(px[:, idx], py[:, idx])
-    errs, oks, kms, pms = [], [], [], []
-    for kf, pf, args in ((point_kernels.padd, cp.add_plain, (kb, q)),
-                         (point_kernels.pmadd, cp.madd_plain, (kb, qa)),
-                         (point_kernels.pdbl, cp.dbl_plain, (kb,))):
+    # bounds: (words in + out) x 32 bytes and the multiplies per element:
+    # padd 6 + 3 words, 12M; pmadd 5 + 3, 11M; pdbl 3 + 3, 8M (6M + 2S)
+    N = W * D
+    errs, oks, kms, pms, bnds = [], [], [], [], []
+    for kf, pf, args, fes, muls in (
+            (point_kernels.padd, cp.add_plain, (kb, q), 9, 12),
+            (point_kernels.pmadd, cp.madd_plain, (kb, qa), 8, 11),
+            (point_kernels.pdbl, cp.dbl_plain, (kb,), 6, 8)):
         kr, pr = kf(curve, *args), pf(curve, *args)
         oks.append(bool(cp.eq(curve, kr, pr).all()))
         errs.append(max(word_err(a, b) for a, b in zip(kr, pr)))
-        kms.append(cuda_ms(lambda: kf(curve, *args), 5))
-        pms.append(cuda_ms(lambda: pf(curve, *args), 3))
-    log(f"[kernels] point_ops padd/pmadd/pdbl kernel ms {kms}, plain ms {pms}")
-    N = W * D
-    record("point_ops", max(errs), kms[0], pms[0], all(oks),
-           bound(9 * 32 * N, imad(12 * N), IMAD_PER_S))
+        kms.append(cuda_ms(lambda: kf(curve, *args), 20))
+        pms.append(cuda_ms(lambda: pf(curve, *args), 2))
+        bnds.append(bound(fes * 32 * N, imad(muls * N), IMAD_PER_S))
+    log(f"[kernels] point_ops padd/pmadd/pdbl kernel ms {kms}, plain ms "
+        f"{pms}, bounds {bnds}")
+    res["point_ops_variants"] = {"kernel_ms": kms, "plain_ms": pms,
+                                 "bounds": bnds}
+    record("point_ops", max(errs), kms[0], pms[0], all(oks), bnds[0])
 
     # 5. weighted scan on the bucket tables, split as weighted_window_sum does
     batch = W
@@ -244,8 +265,8 @@ def kernel_checks(curve, n: int, device) -> dict:
     err = max(word_err(a, b) for a, b in zip((*kr, *kw), (*pr, *pw)))
     S, N = cols.x.shape[1:]
     record("wscan", err,
-           cuda_ms(lambda: point_kernels.weighted_scan(curve, cols), 5),
-           cuda_ms(lambda: point_kernels.weighted_scan_plain(curve, cols), 3),
+           cuda_ms(lambda: point_kernels.weighted_scan(curve, cols), 10),
+           cuda_ms(lambda: point_kernels.weighted_scan_plain(curve, cols), 1),
            ok, bound(3 * 32 * S * N + 6 * 32 * N, imad(24 * S * N),
                      IMAD_PER_S))
     return res
@@ -253,7 +274,7 @@ def kernel_checks(curve, n: int, device) -> dict:
 
 def random_words(n: int, seed: int, top: int = 1 << 32):
     """(8, n) int32 words of random values whose top word is below ``top``
-    (0x30644e72 keeps them below r, 0x60c89ce5 below 2r)."""
+    (r >> 224 keeps them below r, 2r >> 224 below 2r)."""
     import torch
     g = np.random.default_rng(seed)
     w = g.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
@@ -261,59 +282,137 @@ def random_words(n: int, seed: int, top: int = 1 << 32):
     return torch.from_numpy(w.astype(np.uint32).view(np.int32))
 
 
-def ntt_kernel_checks(fr, log_n: int, device) -> dict:
-    """Phase 3 for the NTT's kernels at the 2^log_n NTT's shapes: fmul on
-    (8, 2^log_n) (the top level's twiddle product: DFT output < 2r times
-    the table < r), the DFT at K = 32, nb = 2^(log_n - 5) (every level of
-    2^20), forward and with the inverse's n^-1 scale and the canonical
-    pass.  Kernel and plain version must give equal words."""
+def const_words(fr, value: int, device):
+    """A plain integer as its canonical Montgomery (8,) words."""
+    from panda_tpu_torch.fields import mont
+    return mont.words_tensor(mont.ints_to_words(fr, [fr.to_wire_int(value)]),
+                             device).reshape(-1)
+
+
+def ntt_kernel_checks(fr, log_n: int, device, timed: bool) -> dict:
+    """Phase 3 for the NTT's kernels at the 2^log_n NTT's shapes, over the
+    field ``fr``: fmul on (8, 2^log_n) (the top level's twiddle product: a
+    DFT output < 2r times the table < r), the DFT at K = 32,
+    nb = 2^(log_n - 5) (every pass of the four-step 2^20), forward and
+    with the inverse's n^-1 scale and the canonical pass, and the radix-2
+    pass small_ntt at two of the radix-2 engine's shapes (at 2^20: K = 256,
+    nb = 2^12 with its T1 table, the top pass; K = 64, nb = 2^14, the
+    leaf, whose shape the middle pass shares), each in the main path's
+    configuration and in one with the inverse's scale, the canonical store
+    and input words >= 2r reduced at load.  Kernel and plain version must
+    give equal words.  Times (``timed``) at the main path's configuration:
+    small_ntt's entry is the top pass, the leaf's time is logged beside
+    it."""
     import torch
-    from panda_tpu_torch.ops import fmul, ntt_fused
+    from panda_tpu_torch.ops import fmul, ntt_fused, ntt_pallas
     res = {}
-    n = 1 << log_n
-    a = random_words(n, 31, 0x60c89ce5).to(device)          # < 2r
-    b = random_words(n, 32, 0x30644e72).to(device)          # < r
-    errs, oks = [], []
-    for canon in (False, True):
-        k, p = fmul.fmul(fr, a, b, canon), fmul.fmul_plain(fr, a, b, canon)
-        errs.append(word_err(k, p))
-        oks.append(torch.equal(k, p))
-    ms = cuda_ms(lambda: fmul.fmul(fr, a, b), 20)
-    plain_ms = cuda_ms(lambda: fmul.fmul_plain(fr, a, b), 2)
-    res["fmul"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                   **bound(3 * 32 * n, n * MONT_MUL_IMADS, IMAD_PER_S),
-                   "library_ms": None}
-    log(f"[kernels] fmul (8, 2^{log_n}): max_abs_err={max(errs)} kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {res['fmul']}")
-    if not all(oks):
-        raise AssertionError("fmul: kernel disagrees with plain")
+    n, r = 1 << log_n, fr.modulus
+    below_r, below_2r = r >> 224, (2 * r) >> 224
+    tag = f"[kernels {fr.name}]"
+
+    def check(name, pairs):
+        errs = [word_err(k, p) for k, p in pairs]
+        log(f"{tag} {name}: max_abs_err={max(errs)}")
+        if not all(torch.equal(k, p) for k, p in pairs):
+            raise AssertionError(f"{name} ({fr.name}): kernel disagrees with "
+                                 "plain")
+        return max(errs)
+
+    def entry(name, err, kernel, plain, plain_reps, nbytes, ops, rate):
+        if not timed:
+            return
+        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, plain_reps)
+        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **bound(nbytes, ops, rate), "library_ms": None}
+        log(f"{tag} {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"{res[name]}")
+
+    a = random_words(n, 31, below_2r).to(device)              # < 2r
+    b = random_words(n, 32, below_r).to(device)               # < r
+    err = check("fmul", [(fmul.fmul(fr, a, b, c), fmul.fmul_plain(fr, a, b, c))
+                         for c in (False, True)])
+    entry("fmul", err, lambda: fmul.fmul(fr, a, b),
+          lambda: fmul.fmul_plain(fr, a, b), 2, 3 * 32 * n,
+          n * MONT_MUL_IMADS, IMAD_PER_S)
 
     log_k, nb = 5, 1 << (log_n - 5)
     K = 1 << log_k
     x = random_words(K * nb, 33).reshape(8, K, nb).to(device)   # any < 2^256
     w = fr.root_of_unity(log_k)
     fwd = ntt_fused.dft_matrix(fr, log_k, w, 1, device)
-    inv = ntt_fused.dft_matrix(fr, log_k, pow(w, -1, fr.modulus),
-                               pow(n, -1, fr.modulus), device)
-    errs, oks = [], []
-    for mat, canon in ((fwd, False), (inv, True)):
-        k = ntt_fused.dft_apply_fused(fr, x, log_k, mat, canon)
-        p = ntt_fused.dft_apply_fused_plain(fr, x, log_k, mat, canon)
-        errs.append(word_err(k, p))
-        oks.append(torch.equal(k, p))
-    ms = cuda_ms(lambda: ntt_fused.dft_apply_fused(fr, x, log_k, fwd), 20)
-    plain_ms = cuda_ms(
-        lambda: ntt_fused.dft_apply_fused_plain(fr, x, log_k, fwd), 3)
+    inv = ntt_fused.dft_matrix(fr, log_k, pow(w, -1, r), pow(n, -1, r),
+                               device)
+    err = check("dft", [(ntt_fused.dft_apply_fused(fr, x, log_k, m, c),
+                         ntt_fused.dft_apply_fused_plain(fr, x, log_k, m, c))
+                        for m, c in ((fwd, False), (inv, True))])
     D = 32 * K
-    res["dft"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                  **bound(2 * 32 * K * nb + D * D, 2 * D * D * nb,
-                          INT8_OPS_PER_S),
-                  "library_ms": None}
-    log(f"[kernels] dft K=32 nb=2^{log_n - 5}: max_abs_err={max(errs)} kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {res['dft']}")
-    if not all(oks):
-        raise AssertionError("dft: kernel disagrees with plain")
+    entry("dft", err, lambda: ntt_fused.dft_apply_fused(fr, x, log_k, fwd),
+          lambda: ntt_fused.dft_apply_fused_plain(fr, x, log_k, fwd), 3,
+          2 * 32 * K * nb + D * D, 2 * D * D * nb, INT8_OPS_PER_S)
+
+    scale = const_words(fr, pow(n, -1, r), device)
+    errs, timing = [], {}
+    for log_k, with_pre in ((8, True), (6, False)):
+        K, nb = 1 << log_k, 1 << (log_n - log_k)
+        tw = ntt_pallas.stage_twiddle_rows(fr, log_k, fr.root_of_unity(log_k),
+                                           device)
+        pre = random_words(K * nb, 34, below_r).reshape(8, K, nb).to(device) \
+            if with_pre else None
+        lazy = random_words(K * nb, 35, below_2r).reshape(8, K, nb).to(device)
+        wide = random_words(K * nb, 36).reshape(8, K, nb).to(device)
+        # (input, pre table, scale, reduce_in, canonical_out): the main
+        # path's configuration first, the top pass (lazy input, table,
+        # canonical store) or the leaf (any words, reduced at load)
+        main = (lazy, pre, None, False, True) if with_pre else \
+            (wide, None, None, True, False)
+        other = (wide, pre, scale, True, True) if with_pre else \
+            (lazy, None, scale, False, True)
+        for xi, *opts in (main, other):
+            k = ntt_pallas.small_ntt_batch(fr, xi, log_k, tw, *opts)
+            p = ntt_pallas.small_ntt_batch_plain(fr, xi, log_k, tw, *opts)
+            errs.append(word_err(k, p))
+            if not torch.equal(k, p):
+                raise AssertionError(f"small_ntt ({fr.name}) K = {K}: kernel "
+                                     "disagrees with plain")
+        if timed:
+            xi, *opts = main
+            muls = nb * ((log_k - 1) * K // 2 + (K if with_pre else 0))
+            nbytes = 2 * 32 * K * nb + 32 * K * (1 + (nb if with_pre else 0))
+            timing[K] = {
+                "ms": cuda_ms(lambda: ntt_pallas.small_ntt_batch(
+                    fr, xi, log_k, tw, *opts), 20),
+                "plain_ms": cuda_ms(lambda: ntt_pallas.small_ntt_batch_plain(
+                    fr, xi, log_k, tw, *opts), 2),
+                **bound(nbytes, muls * MONT_MUL_IMADS, IMAD_PER_S)}
+            log(f"{tag} small_ntt K = {K}, nb = {nb}"
+                f"{' + T1 table' if with_pre else ''}: {timing[K]}")
+    log(f"{tag} small_ntt: max_abs_err={max(errs)}")
+    if timed:
+        res["small_ntt"] = {"max_abs_err": max(errs), **timing[256],
+                            "library_ms": None}
+        res["small_ntt_k64"] = timing[64]
     return res
+
+
+def bls_raises(device) -> None:
+    """What the kernels do not cover raises NotImplementedError on the card
+    (no plain version runs for a CUDA tensor): the BLS12-381 NTT, and a
+    BLS12-377 MSM."""
+    from panda_tpu_torch import InitUnitType, PandaManager
+    from panda_tpu_torch.runtime import api
+    for what, run in (
+            ("BLS12-381 NTT", lambda: api.ntt_bls12_381(
+                PandaManager.init_all(0, InitUnitType.NTT, curve="bls12_381",
+                                      device=device), bytes(32 * 32), 5)),
+            ("BLS12-377 MSM", lambda: api.msm(
+                PandaManager.new(0, "bls12_377", device=device),
+                bytes(32 * 16), bytes(96 * 16)))):
+        try:
+            run()
+        except NotImplementedError as e:
+            log(f"[kernels] {what} on the card raises: {e}")
+            continue
+        raise AssertionError(f"{what} ran on the card")
 
 
 def slice_inputs(curve, log_n: int, device) -> dict:
@@ -523,7 +622,7 @@ def ntt_case(fr, log_n: int, seed: int) -> dict:
     n = 1 << log_n
     w = np.random.default_rng(seed).integers(0, 1 << 32, size=(n, 8),
                                              dtype=np.uint64)
-    w[:, 7] %= 0x30644e72
+    w[:, 7] %= fr.modulus >> 224
     data = w.astype("<u4").tobytes()
     ints = [int.from_bytes(data[i:i + 32], "little")
             for i in range(0, len(data), 32)]
@@ -562,27 +661,38 @@ def ntt_timed(label: str, call, want: bytes, reps: int, n: int,
     return {**s, "elements_per_s": n / s["median_ms"] * 1e3, "calls_ms": times}
 
 
-def bls_raises(device) -> None:
-    """The BLS NTT alias on the card raises NotImplementedError (no plain
-    version runs for a CUDA tensor)."""
-    from panda_tpu_torch import InitUnitType, PandaManager
-    from panda_tpu_torch.runtime import api
-    gm = PandaManager.init_all(0, InitUnitType.NTT, curve="bls12_377",
-                               device=device)
+ENGINES = {"auto": "four-step", "pallas": "radix-2"}
+
+
+@contextlib.contextmanager
+def ntt_engine(impl: str):
+    """Sets PANDA_NTT_IMPL, which run_ntt reads at call time, and restores
+    it after."""
+    old = os.environ.get("PANDA_NTT_IMPL")
+    os.environ["PANDA_NTT_IMPL"] = impl
     try:
-        api.ntt_bls12_377(gm, bytes(32 * 32), 5)
-    except NotImplementedError as e:
-        log(f"[kernels] BLS12-377 NTT on the card raises: {e}")
-        return
-    raise AssertionError("BLS12-377 NTT ran on the card")
+        yield
+    finally:
+        if old is None:
+            del os.environ["PANDA_NTT_IMPL"]
+        else:
+            os.environ["PANDA_NTT_IMPL"] = old
 
 
-def ntt_small_gate(fr, device) -> None:
-    """2^12: forward and inverse bytes equal the big-int NTT oracle's, for
-    inputs that include words >= r (any value below 2^256 is taken)."""
+def forward_alias(curve):
+    from panda_tpu_torch.runtime import api
+    return {"bn254": api.ntt_bn254, "bls12_377": api.ntt_bls12_377}[
+        curve.name]
+
+
+def ntt_small_gate(curve, device, impls) -> None:
+    """2^12, with each engine of ``impls``: forward and inverse bytes equal the big-int
+    NTT oracle's, for inputs that include words >= r (any value below
+    2^256 is taken)."""
     from panda_tpu_torch import InitUnitType, PandaManager
     from panda_tpu_torch.reference import ntt_ref
     from panda_tpu_torch.runtime import api
+    fr = curve.fr
     log_n, p = 12, fr.modulus
     g = random.Random(12)
     words = [g.randrange(1 << 256) for _ in range(1 << log_n)]
@@ -592,74 +702,115 @@ def ntt_small_gate(fr, device) -> None:
     w = fr.root_of_unity(log_n)
     wire = lambda vs: b"".join(fr.to_wire_int(v).to_bytes(32, "little")
                                for v in vs)                # noqa: E731
-    gm = PandaManager.init_all(0, InitUnitType.NTT, device=device)
-    if api.ntt_bn254(gm, data, log_n) != wire(ntt_ref.ntt_oracle(fr, vals, w)):
-        raise AssertionError("NTT 2^12 != ntt_ref")
-    if api.intt(gm, data, log_n) != wire(ntt_ref.intt_oracle(fr, vals, w)):
-        raise AssertionError("INTT 2^12 != ntt_ref")
-    log("[ntt 2^12] forward and inverse bytes equal ntt_ref")
+    want = (wire(ntt_ref.ntt_oracle(fr, vals, w)),
+            wire(ntt_ref.intt_oracle(fr, vals, w)))
+    for impl in impls:
+        with ntt_engine(impl):
+            gm = PandaManager.init_all(0, InitUnitType.NTT, curve=curve,
+                                       device=device)
+            got = (forward_alias(curve)(gm, data, log_n),
+                   api.intt(gm, data, log_n))
+        if got != want:
+            raise AssertionError(f"{curve.name} NTT 2^12 ({ENGINES[impl]}) "
+                                 "!= ntt_ref")
+    log(f"[ntt {curve.name} 2^12] forward and inverse bytes equal ntt_ref "
+        f"({', '.join(ENGINES[i] for i in impls)})")
 
 
-def ntt_slice(fr, case: dict, card: str, reps: int, device) -> dict:
-    """Phase 4 for the NTT at one size: forward, inverse and v1 with the
-    root w^3, held to the spot checks and the roundtrip; then the timed
-    calls and the device time of the transform alone."""
-    import torch
+def ntt_slice(curve, case: dict, card: str, reps: int, device,
+              impl: str = "auto", ref: dict | None = None) -> dict:
+    """Phase 4 for the NTT at one size with one engine: forward, inverse
+    and v1 with the root w^3, held to the spot checks (or, given ``ref``,
+    another engine's result for this case, to its bytes) and the
+    roundtrip; then the timed calls and the device time of run_ntt alone.
+    Leaves {gm, out, out3} in case[impl]."""
     from panda_tpu_torch import InitUnitType, PandaManager
     from panda_tpu_torch.fields import mont
     from panda_tpu_torch.ops import ntt as ntt_ops
     from panda_tpu_torch.runtime import api
+    fr = curve.fr
     log_n, n, data = case["log_n"], case["n"], case["data"]
     p = fr.modulus
-    gm = PandaManager.init_all(0, InitUnitType.NTT, device=device)
+    tag = f"[ntt {curve.name} {ENGINES[impl]} 2^{log_n}]"
+    fwd = forward_alias(curve)
+    w3 = pow(fr.root_of_unity(log_n), 3, p)
     g = random.Random(log_n)
     ks = [0, 1, n - 1, g.randrange(n)]
-    t0 = time.perf_counter()
-    out = api.ntt_bn254(gm, data, log_n)
-    first = time.perf_counter() - t0
-    spot_check(fr, case, out, fr.root_of_unity(log_n), ks, "NTT")
-    t0 = time.perf_counter()
-    back = api.intt(gm, out, log_n)
-    first_inv = time.perf_counter() - t0
-    if back != data:
-        raise AssertionError(f"INTT(NTT) 2^{log_n}: roundtrip bytes differ")
-    w3 = pow(fr.root_of_unity(log_n), 3, p)
-    out3 = api.ntt_bn254_v1(gm, data, log_n,
-                            fr.to_wire_int(w3).to_bytes(32, "little"))
-    spot_check(fr, case, out3, w3, ks, "NTT v1 (root w^3)")
-    log(f"[ntt 2^{log_n}] roundtrip exact, spot checks at k = {ks} exact "
-        f"(forward and v1); first call {first:.3f} s, first inverse "
-        f"{first_inv:.3f} s (tables built)")
-
-    res = {"log_n": log_n, "first_s": first, "first_inverse_s": first_inv,
-           "forward": ntt_timed(f"forward 2^{log_n}",
-                                lambda: api.ntt_bn254(gm, data, log_n), out,
-                                reps, n, card),
-           "inverse": ntt_timed(f"inverse 2^{log_n}",
-                                lambda: api.intt(gm, out, log_n), data,
-                                reps, n, card)}
-    x = mont.bytes_to_tensor(fr, data, device)
-    tables = gm.ntt_tables(log_n)
-    dev = cuda_ms(lambda: ntt_ops.run_ntt(fr, x, tables), reps)
+    with ntt_engine(impl):
+        gm = PandaManager.init_all(0, InitUnitType.NTT, curve=curve,
+                                   device=device)
+        t0 = time.perf_counter()
+        out = fwd(gm, data, log_n)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = api.intt(gm, out, log_n)
+        first_inv = time.perf_counter() - t0
+        if back != data:
+            raise AssertionError(f"{tag} INTT(NTT): roundtrip bytes differ")
+        out3 = api.ntt_v1(gm, data, log_n,
+                          fr.to_wire_int(w3).to_bytes(32, "little"))
+        if ref is None:
+            spot_check(fr, case, out, fr.root_of_unity(log_n), ks, "NTT")
+            spot_check(fr, case, out3, w3, ks, "NTT v1 (root w^3)")
+            held = f"spot checks at k = {ks} exact (forward and v1)"
+        else:
+            if (out, out3) != (ref["out"], ref["out3"]):
+                raise AssertionError(f"{tag} bytes differ from the other "
+                                     "engine's")
+            held = "forward and v1 bytes equal the four-step engine's"
+        log(f"{tag} roundtrip exact, {held}; first call {first:.3f} s, first "
+            f"inverse {first_inv:.3f} s (tables built)")
+        res = {"curve": curve.name, "engine": ENGINES[impl], "log_n": log_n,
+               "first_s": first, "first_inverse_s": first_inv,
+               "forward": ntt_timed(f"{curve.name} {ENGINES[impl]} forward "
+                                    f"2^{log_n}",
+                                    lambda: fwd(gm, data, log_n), out, reps,
+                                    n, card),
+               "inverse": ntt_timed(f"{curve.name} {ENGINES[impl]} inverse "
+                                    f"2^{log_n}",
+                                    lambda: api.intt(gm, out, log_n), data,
+                                    reps, n, card)}
+        x = mont.bytes_to_tensor(fr, data, device)
+        tables = gm.ntt_tables(log_n)
+        dev = cuda_ms(lambda: ntt_ops.run_ntt(fr, x, tables), reps)
     res["device_ms"] = dev
     res["device_elements_per_s"] = n / dev * 1e3
-    log(f"[ntt 2^{log_n}] run_ntt alone on the device (CUDA events, median "
-        f"of {reps}): {dev:.3f} ms, {n / dev * 1e3:.0f} elements/s")
-    case["gm"], case["out"] = gm, out
+    log(f"{tag} run_ntt alone on the device (CUDA events, {reps} calls): "
+        f"{dev:.3f} ms, {n / dev * 1e3:.0f} elements/s")
+    case[impl] = {"gm": gm, "out": out, "out3": out3}
     return res
 
 
-def ntt_stage_breakdown(fr, case: dict, reps: int) -> dict:
-    """Phase 5 for the NTT: the byte-API forward call run stage by stage
-    with a device synchronise around each stage (host clock), the calls
-    api._ntt_run and ntt_mxu._transform make, in their order; the bytes are
-    held to the API's.  Per-stage {median_ms, min_ms, max_ms} over
-    ``reps`` calls."""
+def radix2_launches(case: dict) -> dict:
+    """One steady radix-2 forward call's launches (the counters' change):
+    small_ntt must launch and the DFT must not."""
+    from panda_tpu_torch.ops import _ext
+    from panda_tpu_torch.runtime import api
+    before = dict(_ext.launches)
+    with ntt_engine("pallas"):
+        out = api.ntt_bn254(case["pallas"]["gm"], case["data"], case["log_n"])
+    delta = {k: _ext.launches[k] - before[k] for k in before}
+    if out != case["auto"]["out"]:
+        raise AssertionError("radix-2 steady call: bytes differ")
+    if delta["small_ntt"] == 0 or delta["dft"]:
+        raise AssertionError(f"radix-2 2^{case['log_n']} call launched "
+                             f"{delta}")
+    log(f"[ntt radix-2 2^{case['log_n']}] one steady call launches {delta}")
+    return delta
+
+
+def ntt_stage_breakdown(fr, case: dict, reps: int, impl: str = "auto") -> dict:
+    """Phase 5 for the NTT: the byte-API forward call of one engine run
+    stage by stage with a device synchronise around each stage (host
+    clock), the calls api._ntt_run and the engine's _transform make, in
+    their order; the bytes are held to the API's.  Per-stage {median_ms,
+    min_ms, max_ms} over ``reps`` calls."""
     import torch
-    from panda_tpu_torch.ops import _ext, fmul, ntt_fused, ntt_mxu
-    gm, log_n, data = case["gm"], case["log_n"], case["data"]
-    plan = gm.ntt_tables(log_n).plan(False, gm.device)
-    lvl_tabs, leaf_mat = ntt_mxu.plan_tables(plan)
+    from panda_tpu_torch.ops import _ext, fmul, ntt_fused, ntt_mxu, ntt_pallas
+    st = case[impl]
+    gm, log_n, data = st["gm"], case["log_n"], case["data"]
+    engine = "pallas" if impl == "pallas" else "mxu"
+    plan = gm.ntt_tables(log_n).plan(False, gm.device, engine)
     rows = {}
     for _ in range(reps):
         _ext.reset_counts()
@@ -673,8 +824,9 @@ def ntt_stage_breakdown(fr, case: dict, reps: int) -> dict:
             cur[stage] = cur.get(stage, 0.0) + (time.perf_counter() - t0) * 1e3
             return out
 
-        def tr(level, x, canonical):
+        def four_step(level, x, canonical):
             top = " + canonical pass" if canonical else ""
+            lvl_tabs, leaf_mat = ntt_mxu.plan_tables(plan)
             if level == len(plan.levels):
                 lk = plan.leaf[0]
                 return timed(f"dft leaf (K = 2^{lk}){top}",
@@ -684,7 +836,7 @@ def ntt_stage_breakdown(fr, case: dict, reps: int) -> dict:
             t1t, mat = lvl_tabs[level]
             A, B = 1 << la, 1 << lb
             W, M, batch = x.shape
-            y = tr(level + 1, x.reshape(W, B, A * batch), False)
+            y = four_step(level + 1, x.reshape(W, B, A * batch), False)
             z = timed("transposes", lambda: y.reshape(W, B, A, batch)
                       .permute(0, 2, 1, 3).contiguous())
             pre = timed("twiddle table broadcast", lambda: t1t.unsqueeze(-1)
@@ -695,6 +847,25 @@ def ntt_stage_breakdown(fr, case: dict, reps: int) -> dict:
                          z.reshape(W, A, B * batch), la, mat,
                          canonical).reshape(W, A * B, batch)
 
+        def radix2(level, x, canonical):
+            top = " + canonical store" if canonical else ""
+            if level == len(plan.levels):
+                lk, tw = plan.leaf
+                return timed(f"small_ntt leaf (K = 2^{lk}, reduce at load)"
+                             f"{top}", ntt_pallas.small_ntt_batch, fr, x, lk,
+                             tw, None, None, True, canonical)
+            la, lb, t1t, tw = plan.levels[level]
+            A, B = 1 << la, 1 << lb
+            W, M, batch = x.shape
+            y = radix2(level + 1, x.reshape(W, B, A * batch), False)
+            z = timed("transposes", lambda: y.reshape(W, B, A, batch)
+                      .permute(0, 2, 1, 3).contiguous())
+            return timed(f"small_ntt level {level} (K = 2^{la}, T1 at load)"
+                         f"{top}", ntt_pallas.small_ntt_batch, fr,
+                         z.reshape(W, A, B * batch), la, tw, t1t, None, False,
+                         canonical).reshape(W, A * B, batch)
+
+        tr = radix2 if engine == "pallas" else four_step
         raw = timed("ingest: bytes to rows (host)", lambda: torch.from_numpy(
             np.frombuffer(data, np.uint8).view("<i4").reshape(-1, 8).copy()))
         xd = timed("ingest: copy to device", lambda: raw.to(gm.device))
@@ -703,21 +874,22 @@ def ntt_stage_breakdown(fr, case: dict, reps: int) -> dict:
         yt = timed("output: transpose on device", lambda: y.t().contiguous())
         host = timed("output: copy to host", lambda: yt.cpu())
         blob = timed("output: bytes (host)", lambda: host.numpy().tobytes())
-        if blob != case["out"]:
+        if blob != st["out"]:
             raise AssertionError(f"NTT stage breakdown 2^{log_n}: bytes "
                                  "differ from the API's")
         for k, v in cur.items():
             rows.setdefault(k, []).append(v)
     out = {k: spread(v) for k, v in rows.items()}
     out["total"] = spread([sum(rows[k][i] for k in rows) for i in range(reps)])
-    log(f"[ntt stages 2^{log_n}] levels {[l[:2] for l in plan.levels]}, leaf "
-        f"2^{plan.leaf[0]}; ms per call over {reps} calls, synchronised "
-        "stages (median / min / max):")
+    log(f"[ntt stages {ENGINES[impl]} 2^{log_n}] levels "
+        f"{[l[:2] for l in plan.levels]}, leaf 2^{plan.leaf[0]}; ms per call "
+        f"over {reps} calls, synchronised stages (median / min / max):")
     for k, v in out.items():
-        log(f"  {k:<44} {v['median_ms']:9.3f} {v['min_ms']:9.3f} "
+        log(f"  {k:<60} {v['median_ms']:9.3f} {v['min_ms']:9.3f} "
             f"{v['max_ms']:9.3f}")
     log(f"  launches in one call: {dict(_ext.launches)}")
-    return {"log_n": log_n, "stages": out, "launches": dict(_ext.launches)}
+    return {"log_n": log_n, "engine": ENGINES[impl], "stages": out,
+            "launches": dict(_ext.launches)}
 
 
 REPLACES = {"digits": "panda_tpu/ops/digits_pallas.py:77",
@@ -726,21 +898,24 @@ REPLACES = {"digits": "panda_tpu/ops/digits_pallas.py:77",
             "point_ops": "panda_tpu/ops/point_pallas.py:48",
             "wscan": "panda_tpu/ops/point_pallas.py:167",
             "fmul": "panda_tpu/ops/point_pallas.py:251",
-            "dft": "panda_tpu/ops/ntt_fused.py:83"}
+            "dft": "panda_tpu/ops/ntt_fused.py:83",
+            "small_ntt": "panda_tpu/ops/ntt_pallas.py:130"}
 MSM_KERNELS = ("digits", "hist", "phase_a", "point_ops", "wscan")
 NTT_KERNELS = ("fmul", "dft")
+RADIX2_KERNELS = ("small_ntt",)
+BLS_KERNELS = ("fmul", "dft", "small_ntt")
 
 
 def counted(kernels, run):
     """Run one main path with every launch counter set to 0 just before it;
     fail unless each of ``kernels`` launched.  Returns (run's result,
-    counts)."""
+    counts of every kernel)."""
     from panda_tpu_torch.ops import _ext
     _ext.reset_counts()
     out = run()
-    counts = {k: _ext.launches[k] for k in kernels}
+    counts = dict(_ext.launches)
     log(f"[slice] kernel launches: {counts}")
-    dead = [k for k, v in counts.items() if v == 0]
+    dead = [k for k in kernels if counts[k] == 0]
     if dead:
         raise AssertionError(f"kernels never launched on the main path: {dead}")
     return out, counts
@@ -751,7 +926,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from panda_tpu_torch.curves.config import BN254
+    t_start = time.perf_counter()
+    from panda_tpu_torch.curves.config import BLS12_377, BN254
     from panda_tpu_torch.ops import _ext
     fr = BN254.fr
 
@@ -773,47 +949,79 @@ def main() -> int:
     # 2. build
     log(f"[build] {len(_ext.KERNELS)} kernels in {_ext.build_all():.1f} s")
 
-    # 3. kernels against their plain versions; a curve the kernels do not
-    #    cover raises on the card
+    # 3. kernels against their plain versions (BN254 timed, BLS12-377
+    #    checked); what the kernels do not cover raises on the card
     res = kernel_checks(BN254, 1 << 16, device)
-    res.update(ntt_kernel_checks(fr, 20, device))
+    res.update(ntt_kernel_checks(fr, 20, device, True))
+    ntt_kernel_checks(BLS12_377.fr, 20, device, False)
     bls_raises(device)
 
-    # 4. the slices: each main path, counted
+    # 4. the main paths, each counted on its own; a kernel's launches in
+    #    the kernels line are its sum over the paths
     sizes = [slice_inputs(BN254, k, device) for k in (16, 20)]
     runs, counts = counted(MSM_KERNELS,
                            lambda: [slice_run(sl, card, 20) for sl in sizes])
-    ntt_small_gate(fr, device)
     cases = [ntt_case(fr, k, 20261016 + k) for k in (20, 22)]
-    ntt_runs, ntt_counts = counted(
-        NTT_KERNELS, lambda: [ntt_slice(fr, cs, card, r, device)
-                              for cs, r in zip(cases, (20, 10))])
-    counts.update(ntt_counts)
+    bls_case = ntt_case(BLS12_377.fr, 20, 377)
+
+    def four_step():
+        ntt_small_gate(BN254, device, ("auto",))
+        return [ntt_slice(BN254, cs, card, r, device)
+                for cs, r in zip(cases, (20, 10))]
+
+    def radix2():
+        ntt_small_gate(BN254, device, ("pallas",))
+        out = [ntt_slice(BN254, cs, card, r, device, "pallas", cs["auto"])
+               for cs, r in zip(cases, (20, 10))]
+        radix2_launches(cases[0])
+        return out
+
+    def bls12_377():
+        ntt_small_gate(BLS12_377, device, tuple(ENGINES))
+        auto = ntt_slice(BLS12_377, bls_case, card, 10, device)
+        return [auto, ntt_slice(BLS12_377, bls_case, card, 10, device,
+                                "pallas", bls_case["auto"])]
+
+    ntt_runs, ntt_counts = counted(NTT_KERNELS, four_step)
+    r2_runs, r2_counts = counted(RADIX2_KERNELS, radix2)
+    bls_runs, bls_counts = counted(BLS_KERNELS, bls12_377)
+    for c in (ntt_counts, r2_counts, bls_counts):
+        for k, v in c.items():
+            counts[k] += v
 
     # 5. where the time goes, 6. device busy share (not counted)
     from panda_tpu_torch.runtime import api
     stages = [stage_breakdown(BN254, sl, 10) for sl in sizes]
-    stages.append(ntt_stage_breakdown(fr, cases[0], 10))
+    stages += [ntt_stage_breakdown(fr, cases[0], 10, impl) for impl in ENGINES]
     busy = [device_busy(
         f"MSM 2^{sl['log_n']}",
         lambda sl=sl: api.msm_bn254_with_cached_bases(sl["gm"],
                                                       sl["scalars"], 0),
         sl["want"], r["median_ms"]) for sl, r in zip(sizes, runs)]
     c20 = cases[0]
-    busy.append(device_busy(
-        "NTT 2^20", lambda: api.ntt_bn254(c20["gm"], c20["data"], 20),
-        c20["out"], ntt_runs[0]["forward"]["median_ms"]))
+    for impl, run in (("auto", ntt_runs[0]), ("pallas", r2_runs[0])):
+        with ntt_engine(impl):
+            busy.append(device_busy(
+                f"NTT 2^20 {ENGINES[impl]}",
+                lambda: api.ntt_bn254(c20[impl]["gm"], c20["data"], 20),
+                c20["auto"]["out"], run["forward"]["median_ms"]))
     for sl in sizes:
         sl["gm"].deinit()
-    for cs in cases:
-        cs["gm"].deinit()
+    for cs in (*cases, bls_case):
+        for impl in ENGINES:
+            cs[impl]["gm"].deinit()
 
     kernels = [{"name": k, "route": "cuda",
                 "source": f"panda_tpu_torch/csrc/{k}.cu",
                 "replaces": REPLACES[k], "launches": counts[k], **res[k]}
                for k in _ext.KERNELS]
-    log(json.dumps({"slice": runs, "ntt": ntt_runs, "stages": stages,
-                    "busy": busy, "card": card}))
+    log(json.dumps({"slice": runs, "ntt": ntt_runs, "ntt_radix2": r2_runs,
+                    "bls12_377": bls_runs, "stages": stages, "busy": busy,
+                    "point_ops_variants": res["point_ops_variants"],
+                    "small_ntt_k64": res["small_ntt_k64"],
+                    "card": card}))
+    log(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
+        "after its imports")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

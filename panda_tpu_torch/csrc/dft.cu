@@ -1,6 +1,7 @@
 // Batched length-K NTT (K = 2^0..2^5) along axis 1 of (8, K, nb) words, as
 // one product of the batch's bytes against a constant byte matrix, then a
-// regroup and one Montgomery reduction.
+// regroup and one Montgomery reduction.  The field (BN254 Fr or BLS12-377 Fr)
+// is a template parameter; the launcher takes its id.
 //
 // Replaces the TPU kernel panda_tpu/ops/ntt_fused.py::dft_apply_fused (an
 // int8 digit-plane matmul on the MXU plus a regroup and a fold).  Every
@@ -12,8 +13,9 @@
 // with the Montgomery radix R folded in.  Output k, byte position o:
 //   acc_{k,o} = sum_{j,i} d_{j,i} * byte_o(C(j, k, i))   < K * 32 * 255^2,
 // which fits int32 for K <= 32; V_k = sum_o acc_{k,o} 2^(8 o) < K*32*255*p
-// (at most 9 words), and REDC(V_k) = V_k / R = scale * sum_j w^(j k) x_j in
-// the port's Montgomery form, in [0, 2p); canonical_out adds one cond_sub_p.
+// (at most 9 words for both fields), and REDC(V_k) = V_k / R =
+// scale * sum_j w^(j k) x_j in the port's Montgomery form, in [0, 2p);
+// canonical_out adds one cond_sub_p.
 // The JAX package's fold relies on its R = 2^270 >= 4096 p and cannot land
 // under the port's R = 2^256; one REDC of the 9-word value replaces it.
 //
@@ -58,6 +60,7 @@ inline void load4(const uint32_t* p, uint32_t (&v)[4]) {
 
 // Output k of one column.  xs: the column's word 0 of element 0, word w of
 // element j at xs[(w K + j) xstride]; mat: the packed matrix words.
+template <class F>
 PT_FN fe dft_elem(const uint32_t* xs, int64_t xstride, const uint32_t* mat,
                   int K, int k, int canonical_out) {
   uint32_t acc[32];
@@ -90,8 +93,8 @@ PT_FN fe dft_elem(const uint32_t* xs, int64_t xstride, const uint32_t* mat,
     carry = s >> 32;
   }
   t[8] = (uint32_t)carry;
-  fe r = redc9<Fr254>(t);
-  if (canonical_out) r = cond_sub_p<Fr254>(r);
+  fe r = redc9<F>(t);
+  if (canonical_out) r = cond_sub_p<F>(r);
   return r;
 }
 
@@ -102,6 +105,7 @@ PT_FN fe dft_elem(const uint32_t* xs, int64_t xstride, const uint32_t* mat,
 constexpr int kCols = 32;      // columns per block: one warp's width
 constexpr int kMaxRows = 8;    // outputs k per block (blockDim.y)
 
+template <class F>
 __global__ void __launch_bounds__(kCols * kMaxRows)
     dft_kernel(const uint32_t* x, const uint32_t* mat, uint32_t* out,
                int64_t nb, int K, int kgroups, int canonical_out) {
@@ -116,21 +120,32 @@ __global__ void __launch_bounds__(kCols * kMaxRows)
   __syncthreads();
   const int64_t c = c0 + threadIdx.x;
   const ptt::fe v =
-      ptt::dft_elem(tile + threadIdx.x, kCols, mat, K, k, canonical_out);
+      ptt::dft_elem<F>(tile + threadIdx.x, kCols, mat, K, k, canonical_out);
   if (c < nb) ptt::store_fe(out + (int64_t)k * nb, c, (int64_t)K * nb, v);
 }
 
-extern "C" int ptt_dft(const uint32_t* x, const uint8_t* mat, uint32_t* out,
-                       int64_t nb, int K, int canonical_out, void* stream) {
+template <class F>
+int dft_launch(const uint32_t* x, const uint8_t* mat, uint32_t* out,
+               int64_t nb, int K, int canonical_out, cudaStream_t stream) {
   const int rows = K < kMaxRows ? K : kMaxRows;
   const int kgroups = K / rows;
   const int64_t blocks = (nb + kCols - 1) / kCols * kgroups;
   const size_t smem = (size_t)8 * K * kCols * sizeof(uint32_t);
-  dft_kernel<<<(unsigned)blocks, dim3(kCols, rows), smem,
-               (cudaStream_t)stream>>>(
+  dft_kernel<F><<<(unsigned)blocks, dim3(kCols, rows), smem, stream>>>(
       x, reinterpret_cast<const uint32_t*>(mat), out, nb, K, kgroups,
       canonical_out);
   return (int)cudaGetLastError();
+}
+
+extern "C" int ptt_dft(const uint32_t* x, const uint8_t* mat, uint32_t* out,
+                       int64_t nb, int K, int canonical_out, int field,
+                       void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (field) {
+    case 0: return dft_launch<ptt::Fr254>(x, mat, out, nb, K, canonical_out, s);
+    case 1: return dft_launch<ptt::Fr377>(x, mat, out, nb, K, canonical_out, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 #endif

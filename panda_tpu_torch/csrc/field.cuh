@@ -1,4 +1,5 @@
-// BN254 field and point library for the port's CUDA kernels.
+// Field and point library for the port's CUDA kernels: BN254's two fields,
+// BLS12-377's scalar field, and the BN254 curve.
 //
 // Replaces the TPU kernels' in-kernel library panda_tpu/ops/kernel_field.py
 // (LF, _mul, _add, _sub, _mul_small, _select, _madd, _padd, _pdbl).
@@ -185,6 +186,7 @@ struct Fp254 {  // BN254 base field
 
 struct Fr254 {  // BN254 scalar field
   static constexpr uint32_t ninv = 0xefffffffu;
+  static constexpr int wide_top = 2;  // 2^256 < 2^(wide_top + 1) p
   static PT_FN uint32_t p(int i) {
     const uint32_t v[8] = {0xf0000001u, 0x43e1f593u, 0x79b97091u, 0x2833e848u,
                            0x8181585du, 0xb85045b6u, 0xe131a029u, 0x30644e72u};
@@ -201,6 +203,33 @@ struct Fr254 {  // BN254 scalar field
     return v[i];
   }
 };
+
+// BLS12-377 scalar field (253 bits).  The same R = 2^256 and the same
+// invariants as Fr254 hold: 4r < 2^256 (r < 2^253), so CIOS products of
+// values < 2r stay < 2r and add/sub stay below 2^256; and the DFT's V <
+// 2^10 255 r gives V + 2^32 r < 2^288, so redc9 fits 9 words.
+struct Fr377 {
+  static constexpr uint32_t ninv = 0xffffffffu;
+  static constexpr int wide_top = 3;  // 2^256 < 2^(wide_top + 1) p
+  static PT_FN uint32_t p(int i) {
+    const uint32_t v[8] = {0x00000001u, 0x0a118000u, 0xd0000001u, 0x59aa76feu,
+                           0x5c37b001u, 0x60b44d1eu, 0x9a2ca556u, 0x12ab655eu};
+    return v[i];
+  }
+  static PT_FN uint32_t p2(int i) {  // 2p
+    const uint32_t v[8] = {0x00000002u, 0x14230000u, 0xa0000002u, 0xb354edfdu,
+                           0xb86f6002u, 0xc1689a3cu, 0x34594aacu, 0x2556cabdu};
+    return v[i];
+  }
+  static PT_FN uint32_t one(int i) {  // R mod p: Montgomery 1
+    const uint32_t v[8] = {0xfffffff3u, 0x7d1c7fffu, 0x6ffffff2u, 0x7257f50fu,
+                           0x512c0feeu, 0x16d81575u, 0x2bbb9a9du, 0x0d4bda32u};
+    return v[i];
+  }
+};
+
+// The NTT launchers take a field id: 0 is Fr254, 1 is Fr377, in the order of
+// panda_tpu_torch/ops/_ext.py's NTT_FIELDS.
 
 struct fe {
   uint32_t w[8];
@@ -326,6 +355,30 @@ PT_FN fe cond_sub_p(const fe& v) {
   for (int j = 1; j < 8; ++j) d.w[j] = subc_cc(v.w[j], F::p(j));
   const uint32_t borrow = subc(0, 0);
   return select(borrow != 0, v, d);
+}
+
+// Word i of p 2^j, for 0 <= j < 32.
+template <class F>
+PT_FN uint32_t p_shl(int i, int j) {
+  return j == 0 ? F::p(i)
+                : (F::p(i) << j) | (i ? F::p(i - 1) >> (32 - j) : 0u);
+}
+
+// Any value below 2^256 -> canonical [0, p): conditional subtractions of
+// 2^j p for j = F::wide_top down to 0, as the plain mont.reduce_wire.
+template <class F>
+PT_FN fe reduce_wide(const fe& a) {
+  fe v = a;
+#pragma unroll
+  for (int j = F::wide_top; j >= 0; --j) {
+    fe d;
+    d.w[0] = sub_cc(v.w[0], p_shl<F>(0, j));
+#pragma unroll
+    for (int i = 1; i < 8; ++i) d.w[i] = subc_cc(v.w[i], p_shl<F>(i, j));
+    const uint32_t borrow = subc(0, 0);  // all ones when v < 2^j p
+    v = select(borrow != 0, v, d);
+  }
+  return v;
 }
 
 // 9 a mod 2p by the chain 2a, 4a, 8a, 8a + a (the plain version's order).

@@ -28,7 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build" / "panda_tpu_torch"
-KERNELS = ("digits", "hist", "phase_a", "point_ops", "wscan", "fmul", "dft")
+KERNELS = ("digits", "hist", "phase_a", "point_ops", "wscan", "fmul", "dft",
+           "small_ntt")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -141,11 +142,21 @@ def on_cpu(name: str, t: torch.Tensor) -> bool:
     raise ValueError(f"{name}: unsupported device {t.device}")
 
 
-def require_bn254(name: str, spec, want: str = "bn254") -> None:
-    """Raise unless ``spec`` (a curve, or a field) is the one the kernel is
-    built for: the BN254 curve by default, ``"bn254_fr"`` for the NTT's."""
-    if spec.name != want:
+# The fields the NTT kernels (fmul, dft, small_ntt) are built for, in the
+# order of their field ids (csrc/field.cuh: 0 is Fr254, 1 is Fr377).
+NTT_FIELDS = ("bn254_fr", "bls12_377_fr")
+# The MSM kernels are built for the BN254 curve and its scalar field.
+MSM_CURVES = ("bn254",)
+MSM_FIELDS = ("bn254_fr",)
+
+
+def kernel_field(name: str, spec, built_for) -> int:
+    """The id of ``spec`` (a curve, or a field) among the ones kernel
+    ``name`` is built for (its index in ``built_for``); any other raises
+    NotImplementedError."""
+    if spec.name not in built_for:
         raise NotImplementedError(
-            f"{name}: the CUDA kernels cover BN254 only ({want}); {spec.name} "
-            "on the GPU is the ROADMAP item \"BLS12-377 and BLS12-381 on the "
-            "device\"")
+            f"{name}: the CUDA kernel is built for {', '.join(built_for)}, "
+            f"not {spec.name}; the rest is the ROADMAP item \"BLS12-381 and "
+            "the BLS MSMs on the device\"")
+    return built_for.index(spec.name)

@@ -47,7 +47,7 @@ def signed_digits(spec: FieldSpec, scalars: torch.Tensor, c: int, W: int):
         raise ValueError("window width must be in [1, 16]")
     if _ext.on_cpu("signed_digits", scalars):
         return signed_digits_plain(spec, scalars, c, W)
-    _ext.require_bn254("signed_digits", spec, "bn254_fr")
+    _ext.kernel_field("signed_digits", spec, _ext.MSM_FIELDS)
     scalars = scalars.contiguous()
     _ext.check_cuda("signed_digits", scalars)
     if scalars.shape[0] != mont.n_words(spec):

@@ -2,8 +2,8 @@
 
 Counterpart of ``panda_tpu/ops/ntt_fused.py::dft_apply_fused`` and of the
 DFT-of-constants matrix of ``panda_tpu/ops/ntt_mxu.py``; the kernel is
-``csrc/dft.cu`` (BN254 Fr).  ``x`` is (W, K, nb) int32 words (W = 8, any
-value below 2^256), transformed along axis 1:
+``csrc/dft.cu`` (BN254 Fr and BLS12-377 Fr).  ``x`` is (W, K, nb) int32
+words (W = 8, any value below 2^256), transformed along axis 1:
 
     y[k] = scale * sum_j w^(j k) x[j]        (Montgomery form, natural order)
 
@@ -109,7 +109,7 @@ def dft_apply_fused(spec: FieldSpec, x: torch.Tensor, log_k: int,
     check_bounds(spec, log_k)
     if _ext.on_cpu("dft_apply_fused", x):
         return dft_apply_fused_plain(spec, x, log_k, mat, canonical_out)
-    _ext.require_bn254("dft_apply_fused", spec, "bn254_fr")
+    field = _ext.kernel_field("dft_apply_fused", spec, _ext.NTT_FIELDS)
     x, mat = x.contiguous(), mat.contiguous()
     _ext.check_cuda("dft_apply_fused", x)
     if W != 8 or K > 32:
@@ -119,7 +119,7 @@ def dft_apply_fused(spec: FieldSpec, x: torch.Tensor, log_k: int,
         raise ValueError("dft_apply_fused: the matrix must be a 16-byte "
                          "aligned uint8 tensor on x's device")
     out = torch.empty_like(x)
-    _ext.launch("dft", "ptt_dft", [P, P, P, I64, I32, I32],
+    _ext.launch("dft", "ptt_dft", [P, P, P, I64, I32, I32, I32],
                 [x.data_ptr(), mat.data_ptr(), out.data_ptr(), nb, K,
-                 int(canonical_out)], x.device)
+                 int(canonical_out), field], x.device)
     return out

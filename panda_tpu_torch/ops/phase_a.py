@@ -59,7 +59,7 @@ def scan(curve: CurveSpec, keys, sidx, px, py, dead: int):
     """Phase A over all (window, lane) pairs; see the module docstring."""
     if _ext.on_cpu("phase_a", keys):
         return scan_plain(curve, keys, sidx, px, py, dead)
-    _ext.require_bn254("phase_a", curve)
+    _ext.kernel_field("phase_a", curve, _ext.MSM_CURVES)
     keys, sidx, px, py = (a.contiguous() for a in (keys, sidx, px, py))
     _ext.check_cuda("phase_a", keys, sidx, px, py)
     W, S, m = keys.shape

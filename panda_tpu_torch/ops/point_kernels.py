@@ -28,7 +28,7 @@ def _flat(a: torch.Tensor) -> torch.Tensor:
 
 def _run(curve: CurveSpec, symbol: str, arrays, shape):
     """Flatten the batch, launch ``symbol`` of point_ops.cu, restore."""
-    _ext.require_bn254(symbol, curve)
+    _ext.kernel_field(symbol, curve, _ext.MSM_CURVES)
     flat = [_flat(a) for a in arrays]
     _ext.check_cuda(symbol, *flat)
     outs = [torch.empty_like(flat[0]) for _ in range(3)]
@@ -84,7 +84,7 @@ def weighted_scan(curve: CurveSpec, b: ProjPoint):
     coordinates: run = sum_s B_s, wsum = sum_s (s + 1) B_s, each (W, N)."""
     if _ext.on_cpu("weighted_scan", b.x):
         return weighted_scan_plain(curve, b)
-    _ext.require_bn254("weighted_scan", curve)
+    _ext.kernel_field("weighted_scan", curve, _ext.MSM_CURVES)
     b = ProjPoint(*(a.contiguous() for a in b))
     _ext.check_cuda("weighted_scan", *b)
     L, S, N = b.x.shape

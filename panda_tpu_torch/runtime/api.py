@@ -4,6 +4,11 @@ Counterpart of ``panda_tpu/runtime/api.py`` (without ``msm_host`` and the
 BLS MSM aliases): the same entry points, the same wire contract (LE
 Montgomery bytes in; a 3-field result blob, or the transformed elements,
 out) and the same ``PandaError`` codes for malformed input.
+
+On the card the MSM runs for BN254 and the NTT for BN254 and BLS12-377;
+there the BLS12-381 NTT (its 4r > 2^256 breaks the kernels' [0, 2r)
+invariant) and every BLS MSM raise ``NotImplementedError``.  The BLS12-381
+NTT runs on CPU tensors.
 """
 
 from __future__ import annotations

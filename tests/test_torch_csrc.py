@@ -25,12 +25,14 @@ from panda_tpu_torch.curves import point as cp
 from panda_tpu_torch.curves.config import BN254
 from panda_tpu_torch.curves.point import AffinePoint, ProjPoint
 from panda_tpu_torch.fields import mont
-from panda_tpu_torch.fields.config import BN254_FP, BN254_FR
-from panda_tpu_torch.ops import (_ext, digits, fmul, hist, ntt_fused, phase_a,
-                                 point_kernels)
+from panda_tpu_torch.fields.config import BLS12_377_FR, BN254_FP, BN254_FR
+from panda_tpu_torch.ops import (_ext, digits, fmul, hist, ntt_fused,
+                                 ntt_pallas, phase_a, point_kernels)
 from panda_tpu_torch.reference import curve_ref
 
 CSRC = _ext.CSRC
+NTT_FIELDS = pytest.mark.parametrize("fr", [BN254_FR, BLS12_377_FR],
+                                     ids=lambda f: f.name)
 HARNESS = r"""
 #include "point_ops.cu"
 #include "digits.cu"
@@ -39,9 +41,45 @@ HARNESS = r"""
 #include "wscan.cu"
 #include "fmul.cu"
 #include "dft.cu"
+#include "small_ntt.cu"
+#include <vector>
 using namespace ptt;
 typedef const uint32_t* In;
 typedef uint32_t* Out;
+
+template <class F>
+void fmul_all(In a, In b, Out r, int64_t n, int canonical_out) {
+  for (int64_t i = 0; i < n; ++i) fmul_elem<F>(a, b, r, i, n, canonical_out);
+}
+template <class F>
+void dft_all(In x, In mat, Out out, int64_t nb, int K, int canonical_out) {
+  for (int64_t c = 0; c < nb; ++c)
+    for (int k = 0; k < K; ++k)
+      store_fe(out + (int64_t)k * nb, c, (int64_t)K * nb,
+               dft_elem<F>(x + c, nb, mat, K, k, canonical_out));
+}
+// The kernel's steps for one column at a time (a tile of one column).
+template <class F>
+void small_ntt_all(In x, In tw, In pre, In scale, Out out, int64_t nb,
+                   int log_k, int64_t pre_cols, int reduce_in,
+                   int canonical_out) {
+  const int K = 1 << log_k;
+  const int64_t batch = pre ? nb / pre_cols : 1;
+  std::vector<uint32_t> col(8 * K);
+  for (int64_t c = 0; c < nb; ++c) {
+    for (int j = 0; j < K; ++j)
+      store_fe(col.data() + bitrev(j, log_k), 0, K,
+               small_ntt_load<F>(x, pre, nb, K, j, c, pre_cols, batch,
+                                 reduce_in));
+    for (int s = 0; s < log_k; ++s)
+      for (int q = 0; q < K / 2; ++q)
+        small_ntt_butterfly<F>(col.data(), K, 1, tw, K, s, q);
+    for (int k = 0; k < K; ++k)
+      small_ntt_store<F>(out, nb, K, k, c, load_fe(col.data() + k, 0, K),
+                         scale, canonical_out);
+  }
+}
+
 extern "C" {
 void h_fp(int op, In a, In b, Out r, int64_t n) {
   for (int64_t i = 0; i < n; ++i) {
@@ -82,14 +120,24 @@ void h_wscan(In bx, In by, In bz, Out rx, Out ry, Out rz, Out wx, Out wy,
   for (int64_t c = 0; c < N; ++c)
     wscan_col(bx, by, bz, rx, ry, rz, wx, wy, wz, c, N, S);
 }
-void h_fmul(In a, In b, Out r, int64_t n, int canonical_out) {
-  for (int64_t i = 0; i < n; ++i) fmul_elem(a, b, r, i, n, canonical_out);
+void h_fmul(In a, In b, Out r, int64_t n, int canonical_out, int field) {
+  if (field) fmul_all<Fr377>(a, b, r, n, canonical_out);
+  else fmul_all<Fr254>(a, b, r, n, canonical_out);
 }
-void h_dft(In x, In mat, Out out, int64_t nb, int K, int canonical_out) {
-  for (int64_t c = 0; c < nb; ++c)
-    for (int k = 0; k < K; ++k)
-      store_fe(out + (int64_t)k * nb, c, (int64_t)K * nb,
-               dft_elem(x + c, nb, mat, K, k, canonical_out));
+void h_dft(In x, In mat, Out out, int64_t nb, int K, int canonical_out,
+           int field) {
+  if (field) dft_all<Fr377>(x, mat, out, nb, K, canonical_out);
+  else dft_all<Fr254>(x, mat, out, nb, K, canonical_out);
+}
+void h_small_ntt(In x, In tw, In pre, In scale, Out out, int64_t nb,
+                 int log_k, int64_t pre_cols, int reduce_in,
+                 int canonical_out, int field) {
+  if (field)
+    small_ntt_all<Fr377>(x, tw, pre, scale, out, nb, log_k, pre_cols,
+                         reduce_in, canonical_out);
+  else
+    small_ntt_all<Fr254>(x, tw, pre, scale, out, nb, log_k, pre_cols,
+                         reduce_in, canonical_out);
 }
 }
 """
@@ -113,11 +161,13 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 def _call(fn, *args):
-    """Call a harness function: numpy arrays by pointer, ("i32", v) as a C
-    int, any other int as int64_t."""
+    """Call a harness function: numpy arrays by pointer, None as a null
+    pointer, ("i32", v) as a C int, any other int as int64_t."""
     conv = []
     for a in args:
-        if isinstance(a, np.ndarray):
+        if a is None:
+            conv.append(ctypes.c_void_p(None))
+        elif isinstance(a, np.ndarray):
             conv.append(ctypes.c_void_p(a.ctypes.data))
         elif isinstance(a, tuple):              # ("i32", value)
             conv.append(ctypes.c_int(a[1]))
@@ -150,7 +200,11 @@ def _points(n, seed):
     return p, AffinePoint(ax, ay)
 
 
-def test_field_constants_match_field_config():
+@pytest.mark.parametrize("struct,spec", [("Fp254", BN254_FP),
+                                         ("Fr254", BN254_FR),
+                                         ("Fr377", BLS12_377_FR)],
+                         ids=["Fp254", "Fr254", "Fr377"])
+def test_field_constants_match_field_config(struct, spec):
     text = (CSRC / "field.cuh").read_text()
 
     def arr(struct, fn):
@@ -163,13 +217,28 @@ def test_field_constants_match_field_config():
         return int(re.search(r"ninv = 0x([0-9a-f]{8})u", body).group(1), 16)
 
     R = 1 << 256
-    for struct, spec in (("Fp254", BN254_FP), ("Fr254", BN254_FR)):
-        p = spec.modulus
-        assert arr(struct, "p") == p
-        assert arr(struct, "p2") == 2 * p
-        assert arr(struct, "one") == R % p
-        assert ninv(struct) == (-pow(p, -1, 1 << 32)) % (1 << 32)
-        assert 4 * p < R
+    p = spec.modulus
+    assert arr(struct, "p") == p
+    assert arr(struct, "p2") == 2 * p
+    assert arr(struct, "one") == R % p
+    assert ninv(struct) == (-pow(p, -1, 1 << 32)) % (1 << 32)
+    assert 4 * p < R
+    body = text.split(f"struct {struct}")[1].split("};")[0]
+    top = re.search(r"wide_top = (\d+);", body)
+    if spec.two_adicity:                     # the NTT fields: reduce_wide
+        assert int(top.group(1)) == (R // p).bit_length() - 1
+        assert p << int(top.group(1)) < R
+    if struct == "Fr377":                    # the DFT's 9-word REDC
+        ntt_fused.check_bounds(spec, 5)
+
+
+@pytest.mark.parametrize("name", ["fmul", "dft", "small_ntt"])
+def test_field_ids_match_ntt_fields(name):
+    """Each NTT launcher maps field id i to the struct of _ext.NTT_FIELDS[i]."""
+    text = (CSRC / f"{name}.cu").read_text()
+    ids = dict(re.findall(r"case (\d+):\s*return \w+<ptt::(\w+)>", text))
+    struct = {"bn254_fr": "Fr254", "bls12_377_fr": "Fr377"}
+    assert ids == {str(i): struct[f] for i, f in enumerate(_ext.NTT_FIELDS)}
 
 
 @pytest.mark.parametrize("op", ["mul", "add", "sub"])
@@ -279,11 +348,12 @@ def test_weighted_scan_bit_identical(host):
         np.testing.assert_array_equal(o.view(np.int32), _np(e))
 
 
-def test_fmul_bit_identical(host):
+@NTT_FIELDS
+def test_fmul_bit_identical(host, fr):
     """fmul.cu's body against the plain version: a, b < 2r give < 2r (and
     canonical with canonical_out); a < R times the plain 1 gives <= r."""
-    fr = BN254_FR
     r = fr.modulus
+    field = ("i32", _ext.NTT_FIELDS.index(fr.name))
     rng = random.Random(21)
     edge = [0, 1, r - 1, r, r + 1, 2 * r - 1]
     a = edge * len(edge) + [rng.randrange(2 * r) for _ in range(100)]
@@ -295,18 +365,19 @@ def test_fmul_bit_identical(host):
     for (av, bv), canon in [(c, k) for c in cases for k in (0, 1)]:
         A, B = _words(fr, av), _words(fr, bv)
         out = np.empty_like(_np(A))
-        _call(host.h_fmul, _np(A), _np(B), out, len(av), ("i32", canon))
+        _call(host.h_fmul, _np(A), _np(B), out, len(av), ("i32", canon),
+              field)
         np.testing.assert_array_equal(
             out.view(np.int32), _np(fmul.fmul_plain(fr, A, B, bool(canon))))
         limit = r if canon else (r + 1 if bv[0] == 1 else 2 * r)
         assert all(v < limit for v in mont.words_to_ints(out))
 
 
+@NTT_FIELDS
 @pytest.mark.parametrize("log_k", [1, 3, 5])
-def test_dft_bit_identical(host, log_k):
+def test_dft_bit_identical(host, log_k, fr):
     """dft.cu's body against the plain version, forward and with a scale
     and the canonical pass, on words that include values >= r."""
-    fr = BN254_FR
     r = fr.modulus
     K, nb = 1 << log_k, 6
     rng = random.Random(log_k)
@@ -318,8 +389,43 @@ def test_dft_bit_identical(host, log_k):
         mat = ntt_fused.dft_matrix(fr, log_k, w, scale)
         out = np.empty((8, K, nb), np.uint32)
         _call(host.h_dft, _np(x), np.ascontiguousarray(mat.numpy()), out, nb,
-              ("i32", K), ("i32", canon))
+              ("i32", K), ("i32", canon),
+              ("i32", _ext.NTT_FIELDS.index(fr.name)))
         want = ntt_fused.dft_apply_fused_plain(fr, x, log_k, mat, bool(canon))
+        np.testing.assert_array_equal(out.view(np.int32), _np(want))
+        assert all(v < (r if canon else 2 * r)
+                   for v in mont.words_to_ints(out.reshape(8, -1)))
+
+
+@NTT_FIELDS
+@pytest.mark.parametrize("log_k,pre", [(3, False), (3, True), (6, False),
+                                       (6, True)])
+def test_small_ntt_bit_identical(host, log_k, pre, fr):
+    """small_ntt.cu's body (load with the bit reversal, butterflies, store)
+    against the plain version: any words below 2^256 with reduce_in, and
+    words below 2r with the pre-twiddle table (B = 3 of 6 columns, so
+    batch 2), the inverse's scale and the canonical store."""
+    r = fr.modulus
+    K, nb, B = 1 << log_k, 6, 3
+    rng = random.Random(log_k)
+    wide = [rng.randrange(1 << 256) for _ in range(K * nb)]
+    wide[:4] = [(1 << 256) - 1, r, 2 * r - 1, 2 * r + 7]
+    lazy = [rng.randrange(2 * r) for _ in range(K * nb)]
+    tw = ntt_pallas.stage_twiddle_rows(fr, log_k, fr.root_of_unity(log_k))
+    table = _words(fr, [rng.randrange(r) for _ in range(K * B)])
+    table = table.reshape(8, K, B).contiguous() if pre else None
+    scale = _words(fr, [fr.to_wire_int(pow(K, -1, r))]).reshape(8)
+    for vals, sc, reduce_in, canon in ((wide, None, True, False),
+                                       (lazy, scale, False, True)):
+        x = _words(fr, vals).reshape(8, K, nb).contiguous()
+        out = np.empty((8, K, nb), np.uint32)
+        _call(host.h_small_ntt, _np(x), _np(tw),
+              None if table is None else _np(table),
+              None if sc is None else _np(sc), out, nb, ("i32", log_k),
+              B if pre else 1, ("i32", int(reduce_in)), ("i32", int(canon)),
+              ("i32", _ext.NTT_FIELDS.index(fr.name)))
+        want = ntt_pallas.small_ntt_batch_plain(fr, x, log_k, tw, table, sc,
+                                                reduce_in, canon)
         np.testing.assert_array_equal(out.view(np.int32), _np(want))
         assert all(v < (r if canon else 2 * r)
                    for v in mont.words_to_ints(out.reshape(8, -1)))

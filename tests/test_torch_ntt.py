@@ -225,8 +225,9 @@ def test_session_root_and_init_units():
 @pytest.mark.parametrize("curve", [BLS12_377, BLS12_381],
                          ids=lambda c: c.name)
 def test_bls_ntt_plain_on_cpu_and_not_on_gpu(curve):
-    """The BLS scalar fields run their plain versions on CPU tensors; the
-    kernels take BN254 Fr only (on CUDA the wrappers raise)."""
+    """The BLS scalar fields run their plain versions on CPU tensors; on
+    CUDA the NTT kernels take BLS12-377 Fr beside BN254 Fr and raise for
+    BLS12-381 Fr, and the MSM kernels take BN254 only."""
     fr, log_n = curve.fr, 6
     rng = random.Random(7)
     vals = [rng.randrange(fr.modulus) for _ in range(1 << log_n)]
@@ -239,6 +240,13 @@ def test_bls_ntt_plain_on_cpu_and_not_on_gpu(curve):
     assert out == b"".join(fr.to_wire_int(v).to_bytes(32, "little")
                            for v in want)
     assert api.intt(gm, out, log_n) == data
+    if curve is BLS12_377:
+        assert _ext.kernel_field("dft_apply_fused", fr, _ext.NTT_FIELDS) == 1
+    else:
+        with pytest.raises(NotImplementedError):
+            _ext.kernel_field("dft_apply_fused", fr, _ext.NTT_FIELDS)
+    assert _ext.kernel_field("dft_apply_fused", FR, _ext.NTT_FIELDS) == 0
     with pytest.raises(NotImplementedError):
-        _ext.require_bn254("dft_apply_fused", fr, "bn254_fr")
-    _ext.require_bn254("dft_apply_fused", FR, "bn254_fr")
+        _ext.kernel_field("signed_digits", fr, _ext.MSM_FIELDS)
+    with pytest.raises(NotImplementedError):
+        _ext.kernel_field("phase_a", curve, _ext.MSM_CURVES)
