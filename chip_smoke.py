@@ -6,22 +6,27 @@
 Phases, each of which raises on failure (the exit code is then non-zero):
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
-2. build the eight CUDA kernels from panda_tpu_torch/csrc, in parallel;
+2. build the eight CUDA kernels from panda_tpu_torch/csrc, in parallel,
+   and log each kernel entry's registers and spills (ptxas -v);
 3. each kernel against its plain PyTorch version on the card, at its main
    path's shapes: the five MSM kernels at n = 2^16 points (c = 13, W = 20,
-   D = 4096): exact equality for the digits and the histogram, point
-   equality for the point ops, phase A (through the bucket tables it
-   yields) and the weighted scan; fmul at (8, 2^20), the DFT at K = 32,
-   nb = 2^15 (the four-step 2^20 NTT's passes), forward and with the
-   inverse's scale and the canonical pass, and the radix-2 pass small_ntt
-   at K = 256, nb = 2^12 with its T1 table and at K = 64, nb = 2^14 (the
-   radix-2 2^20 NTT's passes), forward and with the inverse's scale and
-   the canonical store, on words that include values >= 2r: equal words,
-   for BN254 Fr and BLS12-377 Fr.  Times from CUDA events around a batch
-   of back-to-back calls, beside the least time the card could take (bytes
-   over 3.35 TB/s or operations over the peak rate, the larger) and, where
-   one PyTorch call computes the same function, that call's time.  The
-   BLS12-381 NTT and a BLS12-377 MSM on the card raise NotImplementedError;
+   D = 4096) and at n = 2^20 (c = 16, W = 16, D = 32768): exact equality
+   for the digits and the histogram, point equality for the point ops,
+   phase A (through the bucket tables it yields, its keys and tails) and
+   the weighted scan; fmul at (8, 2^20), the DFT at K = 32, nb = 2^15 (the
+   four-step 2^20 NTT's passes), forward and with the inverse's scale and
+   the canonical pass, and at K = 4, nb = 2^20 (the 2^22 NTT's leaf), and
+   the radix-2 pass small_ntt at K = 256, nb = 2^12 with its T1 table and
+   at K = 64, nb = 2^14 (the radix-2 2^20 NTT's passes), forward and with
+   the inverse's scale and the canonical store, on words that include
+   values >= 2r: equal words, for BN254 Fr and BLS12-377 Fr.  Each kernel's
+   device time a launch (the median of torch.profiler's CUDA kernel
+   records over a batch of calls) and the batch's time from CUDA events,
+   beside the least time the card could take (bytes over 3.35 TB/s or
+   operations over the peak rate, the larger) and, where one PyTorch call
+   computes the same function, that call's time (torch._int_mm beside the
+   DFT as a yardstick of the int8 tensor cores).  The BLS12-381 NTT and a
+   BLS12-377 MSM on the card raise NotImplementedError;
 4. the main paths, each with every launch counter set to 0 just before it
    and read after it (each of its kernels must have launched): the MSM
    slice, api.msm_bn254_with_cached_bases at n = 2^16 and 2^20 with cached
@@ -39,7 +44,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 5. where the time goes: the MSM call (both sizes) and the 2^20 NTT call of
    each engine run stage by stage with a device synchronise around each
    stage, median, min and max of 10 calls;
-6. the device's busy share of one call each, from torch.profiler.
+6. the device's busy share of one call each (MSM 2^16 and 2^20, NTT 2^20
+   and 2^22 with each engine), and each kernel's launches and device ms in
+   that call, from torch.profiler.
 
 The second-to-last line is a JSON object with one entry per kernel; the last
 line is {"ok": true, "device": {...}}.  Inputs come from fixed seeds.
@@ -82,12 +89,52 @@ def host_cpu_model() -> str:
     return "model unknown"
 
 
+def ptxas_usage() -> dict:
+    """Registers, stack frame and spill bytes of every kernel entry, from
+    ``nvcc -Xptxas=-v`` on each source with the build's flags (a cubin
+    under build/, all sources at once).  Returns {source: [(entry,
+    registers, stack, spill stores, spill loads)]}."""
+    import re
+    from concurrent.futures import ThreadPoolExecutor
+    from panda_tpu_torch.ops import _ext
+    out_dir = _ext.BUILD / "ptxas"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _ext.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                      "-fPIC")]
+
+    def one(name):
+        res = subprocess.run(
+            [_ext.nvcc(), *flags, "-cubin", "-Xptxas=-v", "-o",
+             str(out_dir / f"{name}.cubin"), str(_ext.CSRC / f"{name}.cu")],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas=-v failed for {name}.cu:\n"
+                               f"{res.stderr}")
+        rows, entry, frame = [], None, (0, 0, 0)
+        for line in res.stderr.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                          r" (\d+) bytes spill loads", line)
+            if m:
+                frame = tuple(int(v) for v in m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry:
+                rows.append((entry, int(m.group(1)), *frame))
+                entry, frame = None, (0, 0, 0)
+        return name, rows
+
+    with ThreadPoolExecutor(len(_ext.KERNELS)) as ex:
+        return dict(ex.map(one, _ext.KERNELS))
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds of ``fn()`` over ``reps`` back-to-back calls
-    between one pair of CUDA events, after one warm-up call.  The host work
-    of each call (allocation, checks, the launch) overlaps the kernel
-    queued before it, so a short kernel is timed on the device, not on the
-    host, as long as its launches keep the queue full."""
+    between one pair of CUDA events, after one warm-up call: the batch
+    time a call.  A kernel shorter than its wrapper's host work (checks,
+    allocation, the launch) is paced by the host here; DeviceTimes gives
+    the device time a launch."""
     import torch
     fn()
     a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -98,6 +145,86 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+# The kernels of each kernel library, by the names the profiler records.
+KERNEL_NAMES = {"digits": ("digits_kernel",), "hist": ("hist_kernel",),
+                "phase_a": ("phase_a_kernel",),
+                "point_ops": ("padd_kernel", "pmadd_kernel", "pdbl_kernel"),
+                "wscan": ("wscan_kernel",), "fmul": ("fmul_kernel",),
+                "dft": ("dft_kernel",), "small_ntt": ("small_ntt_kernel",)}
+
+
+def kernel_records(events, names, within=None) -> list:
+    """Device microseconds of each kernel record among ``events`` (a
+    finished torch.profiler run's events) whose name contains one of
+    ``names``, and whose midpoint lies in the time range ``within`` if
+    given."""
+    from torch.autograd import DeviceType
+    return [e.time_range.end - e.time_range.start for e in events
+            if e.device_type == DeviceType.CUDA
+            and any(n in e.name for n in names)
+            and (within is None or within.start
+                 <= (e.time_range.start + e.time_range.end) / 2
+                 <= within.end)]
+
+
+def profile_ranges(jobs):
+    """Run ``jobs`` (label, callable) in one torch.profiler session (CPU and
+    CUDA activity), each inside a record_function range that ends with a
+    device synchronise; returns (each job's result, the session's events,
+    each label's time range).  One session for a whole phase: on the H100
+    runs, one session per measurement lost kernel records from about the
+    dozenth session on, and whole sessions' records later."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    out = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for label, job in jobs:
+            with record_function(label):
+                out.append(job())
+                torch.cuda.synchronize()
+    events = prof.events()
+    labels = {label for label, _ in jobs}
+    ranges = {e.name: e.time_range for e in events if e.name in labels}
+    return out, events, ranges
+
+
+class DeviceTimes:
+    """Per-launch device times from torch.profiler's CUDA kernel records
+    (CUPTI), so the host's pace does not enter.  ``add`` queues a batch of
+    ``reps`` calls of a kernel's wrapper and the dict whose "ms" it fills;
+    ``take`` runs every queued batch (each after one warm-up call) in one
+    profiler session and fills in the median device ms a launch."""
+
+    def __init__(self):
+        self.jobs = []
+
+    def add(self, fn, reps: int, names, out: dict) -> None:
+        self.jobs.append((fn, reps, names, out))
+
+    def take(self) -> None:
+        def batch(fn, reps):
+            def run():
+                for _ in range(reps):
+                    fn()
+            return run
+
+        jobs = []
+        for i, (fn, reps, names, out) in enumerate(self.jobs):
+            jobs += [(f"chip_smoke warm-up {i}", fn),
+                     (f"chip_smoke batch {i}", batch(fn, reps))]
+        _, events, ranges = profile_ranges(jobs)
+        for i, (fn, reps, names, out) in enumerate(self.jobs):
+            us = kernel_records(events, names, ranges[f"chip_smoke batch {i}"])
+            if not us:
+                raise AssertionError(f"the profiler recorded no launch of "
+                                     f"{names} in batch {i}")
+            out["ms"] = statistics.median(us) / 1e3
+            out["recorded"] = f"{len(us)} of {reps}"
+        self.jobs = []
 
 
 def word_err(a, b) -> int:
@@ -155,9 +282,13 @@ def pool_inputs(curve, n: int, seed: int, oracle: bool = True):
     return bases, scalars, curve_ref.msm_oracle(curve, pts, agg)
 
 
-def kernel_checks(curve, n: int, device) -> dict:
+def kernel_checks(curve, n: int, device, timer: DeviceTimes,
+                  plain_times: bool = True) -> dict:
     """Phase 3: each kernel against its plain version at the main-path
-    shapes for n points.  Returns {kernel: {max_abs_err, ms, plain_ms}}."""
+    shapes for n points.  Returns {kernel: {max_abs_err, batch_ms (CUDA
+    events around a batch), plain_ms (None unless ``plain_times``),
+    bound_ms, bound_by, library_ms}}; ``timer`` fills in "ms", the device
+    ms a launch, when it takes its batches."""
     import torch
     from panda_tpu_torch.curves import point as cp
     from panda_tpu_torch.curves.point import AffinePoint, ProjPoint
@@ -177,22 +308,34 @@ def kernel_checks(curve, n: int, device) -> dict:
     px, py = gm.ingest_bases(bases)
     s = gm.ingest_scalars(scalars)
 
-    def record(name, err, ms, plain_ms, ok, bnd, library_ms=None):
-        log(f"[kernels] {name}: max_abs_err={err} kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
-            f"({bnd['bound_by']}), library {library_ms} ms")
+    def timed(fn, reps, names):
+        """A kernel call's batch ms now; its device ms a launch queued."""
+        out = {"batch_ms": cuda_ms(fn, reps)}
+        timer.add(fn, reps, names, out)
+        return out
+
+    def plain_ms(fn, reps):
+        return cuda_ms(fn, reps) if plain_times else None
+
+    def record(name, err, ms, plain, ok, bnd, library_ms=None):
+        log(f"[kernels 2^{n.bit_length() - 1}] {name}: max_abs_err={err} "
+            f"kernel {ms['batch_ms']:.4f} ms batch-timed, plain {plain} ms, "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library "
+            f"{library_ms} ms")
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with plain")
-        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     **bnd, "library_ms": library_ms}
+        ms.update({"max_abs_err": err, "plain_ms": plain, **bnd,
+                   "library_ms": library_ms})
+        res[name] = ms
 
     # 1. signed digits: exact
     km, kn = digits.signed_digits(curve.fr, s, c, W)
     pm, pn = digits.signed_digits_plain(curve.fr, s, c, W)
     err = max(word_err(km, pm), word_err(kn.int(), pn.int()))
     record("digits", err,
-           cuda_ms(lambda: digits.signed_digits(curve.fr, s, c, W), 20),
-           cuda_ms(lambda: digits.signed_digits_plain(curve.fr, s, c, W), 2),
+           timed(lambda: digits.signed_digits(curve.fr, s, c, W), 20,
+                 KERNEL_NAMES["digits"]),
+           plain_ms(lambda: digits.signed_digits_plain(curve.fr, s, c, W), 2),
            torch.equal(km, pm) and torch.equal(kn, pn),
            bound(n * 32 + W * n * 5, imad(n), IMAD_PER_S))
 
@@ -203,13 +346,14 @@ def kernel_checks(curve, n: int, device) -> dict:
         W, device=device)[:, None] * (D + 2)).reshape(-1)
     lib = cuda_ms(lambda: torch.bincount(offs, minlength=W * (D + 2)), 20)
     record("hist", word_err(kh, ph),
-           cuda_ms(lambda: hist.hist_counts(km, D), 20),
-           cuda_ms(lambda: hist.hist_counts_plain(km, D), 5),
+           timed(lambda: hist.hist_counts(km, D), 20, KERNEL_NAMES["hist"]),
+           plain_ms(lambda: hist.hist_counts_plain(km, D), 5),
            torch.equal(kh, ph), bound(W * n * 4 + W * D * 4, 0, IMAD_PER_S),
            lib)
 
-    # 3. phase A, through the bucket tables it yields; the work this data
-    #    needs is one mixed add per entry with a digit in 1..D
+    # 3. phase A, through the bucket tables it yields (its emissions are
+    #    defined where a run ended); the work this data needs is one mixed
+    #    add per entry with a digit in 1..D, and a stored sum per run end
     st = msm.sorted_streams(km, kn, c, m)
     live = int(((st.keys >= 1) & (st.keys <= D)).sum().item())
     P = st.keys.numel()
@@ -220,12 +364,16 @@ def kernel_checks(curve, n: int, device) -> dict:
     ok = bool(cp.eq(curve, kb, pb).all()) and torch.equal(ka[0], pa[0]) \
         and torch.equal(ka[2], pa[2])
     err = max(word_err(a, b) for a, b in zip(kb, pb))
+    runs = int((ka[0] != D + 1).sum().item())
+    log(f"[kernels 2^{n.bit_length() - 1}] phase_a: {W} windows x {m} lanes "
+        f"x {st.keys.shape[1]} steps in one launch; {live} mixed adds, "
+        f"{runs} run sums stored")
     record("phase_a", err,
-           cuda_ms(lambda: phase_a.scan(curve, st.keys, st.sidx, px, py,
-                                        D + 1), 10),
-           cuda_ms(lambda: phase_a.scan_plain(curve, st.keys, st.sidx, px,
-                                              py, D + 1), 1), ok,
-           bound(P * 8 + px.shape[1] * 64 + P * 100 + W * m * 100,
+           timed(lambda: phase_a.scan(curve, st.keys, st.sidx, px, py,
+                                      D + 1), 5, KERNEL_NAMES["phase_a"]),
+           plain_ms(lambda: phase_a.scan_plain(curve, st.keys, st.sidx, px,
+                                               py, D + 1), 1), ok,
+           bound(P * 12 + px.shape[1] * 64 + runs * 96 + W * m * 100,
                  imad(11 * live), IMAD_PER_S))
 
     # 4. point ops on the bucket tables' shape (8, W, D): the interior +
@@ -237,17 +385,20 @@ def kernel_checks(curve, n: int, device) -> dict:
     # padd 6 + 3 words, 12M; pmadd 5 + 3, 11M; pdbl 3 + 3, 8M (6M + 2S)
     N = W * D
     errs, oks, kms, pms, bnds = [], [], [], [], []
-    for kf, pf, args, fes, muls in (
-            (point_kernels.padd, cp.add_plain, (kb, q), 9, 12),
-            (point_kernels.pmadd, cp.madd_plain, (kb, qa), 8, 11),
-            (point_kernels.pdbl, cp.dbl_plain, (kb,), 6, 8)):
+    for kf, pf, args, fes, muls, kname in (
+            (point_kernels.padd, cp.add_plain, (kb, q), 9, 12, "padd_kernel"),
+            (point_kernels.pmadd, cp.madd_plain, (kb, qa), 8, 11,
+             "pmadd_kernel"),
+            (point_kernels.pdbl, cp.dbl_plain, (kb,), 6, 8, "pdbl_kernel")):
         kr, pr = kf(curve, *args), pf(curve, *args)
         oks.append(bool(cp.eq(curve, kr, pr).all()))
         errs.append(max(word_err(a, b) for a, b in zip(kr, pr)))
-        kms.append(cuda_ms(lambda: kf(curve, *args), 20))
-        pms.append(cuda_ms(lambda: pf(curve, *args), 2))
+        kms.append(timed(lambda kf=kf, args=args: kf(curve, *args), 20,
+                         (kname,)))
+        pms.append(plain_ms(lambda: pf(curve, *args), 2))
         bnds.append(bound(fes * 32 * N, imad(muls * N), IMAD_PER_S))
-    log(f"[kernels] point_ops padd/pmadd/pdbl kernel ms {kms}, plain ms "
+    log(f"[kernels 2^{n.bit_length() - 1}] point_ops padd/pmadd/pdbl on "
+        f"{N} elements: batch ms {[k['batch_ms'] for k in kms]}, plain ms "
         f"{pms}, bounds {bnds}")
     res["point_ops_variants"] = {"kernel_ms": kms, "plain_ms": pms,
                                  "bounds": bnds}
@@ -264,9 +415,11 @@ def kernel_checks(curve, n: int, device) -> dict:
     ok = bool(cp.eq(curve, kr, pr).all()) and bool(cp.eq(curve, kw, pw).all())
     err = max(word_err(a, b) for a, b in zip((*kr, *kw), (*pr, *pw)))
     S, N = cols.x.shape[1:]
+    log(f"[kernels 2^{n.bit_length() - 1}] wscan: {S} steps x {N} columns")
     record("wscan", err,
-           cuda_ms(lambda: point_kernels.weighted_scan(curve, cols), 10),
-           cuda_ms(lambda: point_kernels.weighted_scan_plain(curve, cols), 1),
+           timed(lambda: point_kernels.weighted_scan(curve, cols), 10,
+                 KERNEL_NAMES["wscan"]),
+           plain_ms(lambda: point_kernels.weighted_scan_plain(curve, cols), 1),
            ok, bound(3 * 32 * S * N + 6 * 32 * N, imad(24 * S * N),
                      IMAD_PER_S))
     return res
@@ -289,7 +442,8 @@ def const_words(fr, value: int, device):
                              device).reshape(-1)
 
 
-def ntt_kernel_checks(fr, log_n: int, device, timed: bool) -> dict:
+def ntt_kernel_checks(fr, log_n: int, device,
+                      timer: DeviceTimes | None) -> dict:
     """Phase 3 for the NTT's kernels at the 2^log_n NTT's shapes, over the
     field ``fr``: fmul on (8, 2^log_n) (the top level's twiddle product: a
     DFT output < 2r times the table < r), the DFT at K = 32,
@@ -299,10 +453,14 @@ def ntt_kernel_checks(fr, log_n: int, device, timed: bool) -> dict:
     nb = 2^12 with its T1 table, the top pass; K = 64, nb = 2^14, the
     leaf, whose shape the middle pass shares), each in the main path's
     configuration and in one with the inverse's scale, the canonical store
-    and input words >= 2r reduced at load.  Kernel and plain version must
-    give equal words.  Times (``timed``) at the main path's configuration:
-    small_ntt's entry is the top pass, the leaf's time is logged beside
-    it."""
+    and input words >= 2r reduced at load; and the DFT at K = 4,
+    nb = 2^log_n (the four-step 2^(log_n + 2) NTT's leaf).  Kernel and
+    plain version must give equal words.  Times (``timed``) at the main
+    path's configuration (given a ``timer``, which fills in the device ms a
+    launch) beside the batch time: small_ntt's entry is the top pass, its
+    leaf's entry small_ntt_k64, the DFT's K = 4 entry dft_k4, and the
+    torch._int_mm yardstick (the same M x K x N in signed int8, no
+    reduction) is logged beside the DFT."""
     import torch
     from panda_tpu_torch.ops import fmul, ntt_fused, ntt_pallas
     res = {}
@@ -318,14 +476,15 @@ def ntt_kernel_checks(fr, log_n: int, device, timed: bool) -> dict:
                                  "plain")
         return max(errs)
 
-    def entry(name, err, kernel, plain, plain_reps, nbytes, ops, rate):
-        if not timed:
+    def entry(name, err, kernel, plain, plain_reps, nbytes, ops, rate,
+              kname=None):
+        if timer is None:
             return
-        ms, plain_ms = cuda_ms(kernel, 20), cuda_ms(plain, plain_reps)
-        res[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        res[name] = {"max_abs_err": err, "batch_ms": cuda_ms(kernel, 20),
+                     "plain_ms": cuda_ms(plain, plain_reps),
                      **bound(nbytes, ops, rate), "library_ms": None}
-        log(f"{tag} {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-            f"{res[name]}")
+        timer.add(kernel, 20, KERNEL_NAMES[kname or name], res[name])
+        log(f"{tag} {name}: {res[name]}")
 
     a = random_words(n, 31, below_2r).to(device)              # < 2r
     b = random_words(n, 32, below_r).to(device)               # < r
@@ -346,9 +505,34 @@ def ntt_kernel_checks(fr, log_n: int, device, timed: bool) -> dict:
                          ntt_fused.dft_apply_fused_plain(fr, x, log_k, m, c))
                         for m, c in ((fwd, False), (inv, True))])
     D = 32 * K
-    entry("dft", err, lambda: ntt_fused.dft_apply_fused(fr, x, log_k, fwd),
+    entry("dft", err,
+          lambda x=x, log_k=log_k: ntt_fused.dft_apply_fused(fr, x, log_k,
+                                                             fwd),
           lambda: ntt_fused.dft_apply_fused_plain(fr, x, log_k, fwd), 3,
           2 * 32 * K * nb + D * D, 2 * D * D * nb, INT8_OPS_PER_S)
+    if timer is not None:
+        a8 = torch.randint(-128, 128, (D, D), dtype=torch.int8,
+                           device=device)
+        b8 = torch.randint(-128, 128, (D, nb), dtype=torch.int8,
+                           device=device)
+        ym = cuda_ms(lambda: torch._int_mm(a8, b8), 20)
+        res["dft"]["int_mm_ms"] = ym
+        log(f"{tag} yardstick torch._int_mm ({D} x {D}) @ ({D} x {nb}) int8: "
+            f"{ym:.4f} ms batch-timed")
+
+    # the DFT at the four-step 2^(log_n + 2) NTT's leaf: K = 4
+    log_k, nb = 2, 1 << log_n
+    K, D = 1 << log_k, 32 << log_k
+    x = random_words(K * nb, 37).reshape(8, K, nb).to(device)
+    leaf = ntt_fused.dft_matrix(fr, log_k, fr.root_of_unity(log_k), 1, device)
+    k4 = ntt_fused.dft_apply_fused(fr, x, log_k, leaf)
+    err = check("dft K = 4", [(k4, ntt_fused.dft_apply_fused_plain(
+        fr, x, log_k, leaf))])
+    entry("dft_k4", err,
+          lambda x=x, log_k=log_k: ntt_fused.dft_apply_fused(fr, x, log_k,
+                                                             leaf),
+          lambda: ntt_fused.dft_apply_fused_plain(fr, x, log_k, leaf), 3,
+          2 * 32 * K * nb + D * D, 2 * D * D * nb, INT8_OPS_PER_S, "dft")
 
     scale = const_words(fr, pow(n, -1, r), device)
     errs, timing = [], {}
@@ -374,22 +558,25 @@ def ntt_kernel_checks(fr, log_n: int, device, timed: bool) -> dict:
             if not torch.equal(k, p):
                 raise AssertionError(f"small_ntt ({fr.name}) K = {K}: kernel "
                                      "disagrees with plain")
-        if timed:
+        if timer is not None:
             xi, *opts = main
             muls = nb * ((log_k - 1) * K // 2 + (K if with_pre else 0))
             nbytes = 2 * 32 * K * nb + 32 * K * (1 + (nb if with_pre else 0))
+            run = lambda xi=xi, log_k=log_k, tw=tw, opts=opts: (  # noqa
+                ntt_pallas.small_ntt_batch(fr, xi, log_k, tw, *opts))
             timing[K] = {
-                "ms": cuda_ms(lambda: ntt_pallas.small_ntt_batch(
-                    fr, xi, log_k, tw, *opts), 20),
+                "batch_ms": cuda_ms(run, 20),
                 "plain_ms": cuda_ms(lambda: ntt_pallas.small_ntt_batch_plain(
                     fr, xi, log_k, tw, *opts), 2),
                 **bound(nbytes, muls * MONT_MUL_IMADS, IMAD_PER_S)}
+            timer.add(run, 20, KERNEL_NAMES["small_ntt"], timing[K])
             log(f"{tag} small_ntt K = {K}, nb = {nb}"
                 f"{' + T1 table' if with_pre else ''}: {timing[K]}")
     log(f"{tag} small_ntt: max_abs_err={max(errs)}")
-    if timed:
-        res["small_ntt"] = {"max_abs_err": max(errs), **timing[256],
-                            "library_ms": None}
+    if timer is not None:
+        res["small_ntt"] = timing[256]
+        res["small_ntt"].update({"max_abs_err": max(errs),
+                                 "library_ms": None})
         res["small_ntt_k64"] = timing[64]
     return res
 
@@ -556,51 +743,86 @@ def stage_breakdown(curve, sl: dict, reps: int) -> dict:
     return {"log_n": log_n, "stages": out, "launches": dict(_ext.launches)}
 
 
-def device_busy(label: str, call, want: bytes, unprofiled_ms: float) -> dict:
-    """Phase 6: one byte-API call under torch.profiler.  Busy time is the
-    union of the device intervals (kernels and copies; the profiler's own
-    buffer requests left out); the share is given over the profiled call's
-    wall time and over the unprofiled median of phase 4."""
+def device_busy(calls) -> list:
+    """Phase 6: byte-API calls, each (label, call, wanted bytes, unprofiled
+    median ms of phase 4), in one torch.profiler session, each in its own
+    range.  Busy time is the union of the device intervals within a call's
+    range (kernels and copies; the profiler's own buffer requests left
+    out); the share is given over the call's wall time under the profiler
+    and over the unprofiled median.  Per kernel library: its launches in
+    the call (the launch counters) and their device ms in all."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        blob = call()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    if blob != want:
-        raise AssertionError(f"profiled call {label}: wrong bytes")
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == DeviceType.CUDA
-                   and "Activity Buffer" not in e.name)
-    busy, end = 0.0, None
-    for a, b in spans:                       # union of intervals, in us
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    busy /= 1e3
-    if busy <= 0:
-        raise AssertionError("torch.profiler recorded no device activity")
-    top = sorted((e for e in prof.key_averages()
-                  if e.self_device_time_total > 0
-                  and "Activity Buffer" not in e.key),
-                 key=lambda e: -e.self_device_time_total)[:8]
-    log(f"[busy {label}] device busy {busy:.3f} ms; profiled wall "
-        f"{wall:.3f} ms (share {busy / wall:.3f}); unprofiled median "
-        f"{unprofiled_ms:.3f} ms (share {busy / unprofiled_ms:.3f})")
-    for e in top:
-        log(f"  {e.key[:60]:<60} {e.self_device_time_total / 1e3:8.3f} ms "
-            f"x{e.count}")
-    return {"label": label, "busy_ms": busy, "profiled_wall_ms": wall,
-            "share_profiled": busy / wall,
-            "share_unprofiled": busy / unprofiled_ms}
+    from panda_tpu_torch.ops import _ext
+    stats = []
+
+    def job(call):
+        def run():
+            before = dict(_ext.launches)
+            t0 = time.perf_counter()
+            blob = call()
+            torch.cuda.synchronize()
+            stats.append({"wall": (time.perf_counter() - t0) * 1e3,
+                          "launched": {k: _ext.launches[k] - before[k]
+                                       for k in before}})
+            return blob
+        return run
+
+    names = [f"chip_smoke call {label}" for label, *_ in calls]
+    blobs, events, ranges = profile_ranges(
+        [(n, job(call)) for n, (_, call, *_) in zip(names, calls)])
+    out = []
+    for name, (label, _, want, unprofiled_ms), blob, st in zip(
+            names, calls, blobs, stats):
+        if blob != want:
+            raise AssertionError(f"profiled call {label}: wrong bytes")
+        rng, wall = ranges[name], st["wall"]
+        dev = [e for e in events
+               if e.device_type == DeviceType.CUDA and e.name not in names
+               and "Activity Buffer" not in e.name
+               and rng.start <= (e.time_range.start + e.time_range.end) / 2
+               <= rng.end]
+        busy, end = 0.0, None
+        for a, b in sorted((e.time_range.start, e.time_range.end)
+                           for e in dev):    # union of intervals, in us
+            if end is None or a > end:
+                busy += b - a
+                end = b
+            elif b > end:
+                busy += b - end
+                end = b
+        busy /= 1e3
+        if busy <= 0:
+            raise AssertionError(f"{label}: torch.profiler recorded no device "
+                                 "activity")
+        by_name = {}
+        for e in dev:
+            t = by_name.setdefault(e.name, [0.0, 0])
+            t[0] += (e.time_range.end - e.time_range.start) / 1e3
+            t[1] += 1
+        per_kernel = {}
+        for k, kn in KERNEL_NAMES.items():
+            us = kernel_records(events, kn, rng)
+            if st["launched"][k]:
+                per_kernel[k] = {"launches": st["launched"][k],
+                                 "recorded": len(us),
+                                 "device_ms": sum(us) / 1e3}
+        log(f"[busy {label}] device busy {busy:.3f} ms; profiled wall "
+            f"{wall:.3f} ms (share {busy / wall:.3f}); unprofiled median "
+            f"{unprofiled_ms:.3f} ms (share {busy / unprofiled_ms:.3f})")
+        for k, (ms, count) in sorted(by_name.items(),
+                                     key=lambda kv: -kv[1][0])[:8]:
+            log(f"  {k[:60]:<60} {ms:8.3f} ms x{count}")
+        log("  per call, launches x device ms: " + ", ".join(
+            f"{k} {v['launches']} x "
+            f"{v['device_ms'] / max(v['recorded'], 1):.4f} "
+            f"({v['recorded']} recorded, {v['device_ms']:.4f} ms)"
+            for k, v in per_kernel.items()))
+        out.append({"label": label, "busy_ms": busy, "profiled_wall_ms": wall,
+                    "share_profiled": busy / wall,
+                    "share_unprofiled": busy / unprofiled_ms,
+                    "per_kernel": per_kernel})
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -724,6 +946,7 @@ def ntt_slice(curve, case: dict, card: str, reps: int, device,
     another engine's result for this case, to its bytes) and the
     roundtrip; then the timed calls and the device time of run_ntt alone.
     Leaves {gm, out, out3} in case[impl]."""
+    import torch
     from panda_tpu_torch import InitUnitType, PandaManager
     from panda_tpu_torch.fields import mont
     from panda_tpu_torch.ops import ntt as ntt_ops
@@ -772,11 +995,20 @@ def ntt_slice(curve, case: dict, card: str, reps: int, device,
                                     reps, n, card)}
         x = mont.bytes_to_tensor(fr, data, device)
         tables = gm.ntt_tables(log_n)
+        mem0 = torch.cuda.memory_stats(device)
         dev = cuda_ms(lambda: ntt_ops.run_ntt(fr, x, tables), reps)
+        mem1 = torch.cuda.memory_stats(device)
     res["device_ms"] = dev
     res["device_elements_per_s"] = n / dev * 1e3
+    # the caching allocator's own device allocations and retries (which
+    # free its cache and synchronise) during the timed calls
+    alloc = {k: mem1[k] - mem0[k]
+             for k in ("num_device_alloc", "num_alloc_retries") if k in mem1}
+    res["allocator"] = {**alloc, "reserved_gib":
+                        mem1.get("reserved_bytes.all.current", 0) / 2**30}
     log(f"{tag} run_ntt alone on the device (CUDA events, {reps} calls): "
-        f"{dev:.3f} ms, {n / dev * 1e3:.0f} elements/s")
+        f"{dev:.3f} ms, {n / dev * 1e3:.0f} elements/s; allocator during "
+        f"them: {res['allocator']}")
     case[impl] = {"gm": gm, "out": out, "out3": out3}
     return res
 
@@ -906,6 +1138,34 @@ RADIX2_KERNELS = ("small_ntt",)
 BLS_KERNELS = ("fmul", "dft", "small_ntt")
 
 
+def gap_ranking(busy: list, bounds: dict) -> list:
+    """Per call at 2^20 (the profiled MSM call and each engine's NTT call):
+    each kernel's launches x (device ms a launch - its bound a launch at the
+    2^20 shapes), largest first: where kernel work gains the most.  A
+    kernel whose mean launch is shorter than that bound launches at smaller
+    shapes (the point ops' scans) and is left out."""
+    rows = []
+    for b in busy:
+        if "2^20" not in b["label"]:
+            continue
+        for k, v in b["per_kernel"].items():
+            if not v["recorded"]:
+                continue
+            per_launch = v["device_ms"] / v["recorded"]
+            if per_launch < bounds[k]:
+                continue
+            rows.append({"call": b["label"], "kernel": k,
+                         "launches": v["launches"], "device_ms_a_launch":
+                         per_launch, "gap_ms": v["launches"] *
+                         (per_launch - bounds[k])})
+    rows.sort(key=lambda r: -r["gap_ms"])
+    log("[ranking] per call at 2^20, launches x (device ms - bound): " +
+        "; ".join(f"{r['kernel']} ({r['call']}) {r['launches']} x "
+                  f"{r['device_ms_a_launch']:.4f} ms, gap {r['gap_ms']:.3f} ms"
+                  for r in rows))
+    return rows
+
+
 def counted(kernels, run):
     """Run one main path with every launch counter set to 0 just before it;
     fail unless each of ``kernels`` launched.  Returns (run's result,
@@ -948,13 +1208,28 @@ def main() -> int:
 
     # 2. build
     log(f"[build] {len(_ext.KERNELS)} kernels in {_ext.build_all():.1f} s")
+    usage = ptxas_usage()
+    log("[build] ptxas -v, registers / stack / spill stores / spill loads "
+        "(bytes) a thread: " + "; ".join(
+            f"{name} {entry[:40]} {regs} / {stack} / {st} / {ld}"
+            for name, rows in usage.items()
+            for entry, regs, stack, st, ld in rows))
 
     # 3. kernels against their plain versions (BN254 timed, BLS12-377
     #    checked); what the kernels do not cover raises on the card
-    res = kernel_checks(BN254, 1 << 16, device)
-    res.update(ntt_kernel_checks(fr, 20, device, True))
-    ntt_kernel_checks(BLS12_377.fr, 20, device, False)
+    timer = DeviceTimes()
+    res = kernel_checks(BN254, 1 << 16, device, timer)
+    res20 = kernel_checks(BN254, 1 << 20, device, timer, plain_times=False)
+    res.update(ntt_kernel_checks(fr, 20, device, timer))
+    ntt_kernel_checks(BLS12_377.fr, 20, device, None)
     bls_raises(device)
+    timer.take()
+    log("[kernels] device ms a launch (torch.profiler), batch ms a call, "
+        "bound ms: " + "; ".join(
+            f"{k}{tag} {v['ms']:.4f} ({v['recorded']}), {v['batch_ms']:.4f}, "
+            f"{v['bound_ms']:.4f}"
+            for tag, r in (("", res), (" 2^20", res20)) for k, v in r.items()
+            if "ms" in v))
 
     # 4. the main paths, each counted on its own; a kernel's launches in
     #    the kernels line are its sum over the paths
@@ -993,23 +1268,35 @@ def main() -> int:
     from panda_tpu_torch.runtime import api
     stages = [stage_breakdown(BN254, sl, 10) for sl in sizes]
     stages += [ntt_stage_breakdown(fr, cases[0], 10, impl) for impl in ENGINES]
-    busy = [device_busy(
-        f"MSM 2^{sl['log_n']}",
-        lambda sl=sl: api.msm_bn254_with_cached_bases(sl["gm"],
-                                                      sl["scalars"], 0),
-        sl["want"], r["median_ms"]) for sl, r in zip(sizes, runs)]
-    c20 = cases[0]
-    for impl, run in (("auto", ntt_runs[0]), ("pallas", r2_runs[0])):
-        with ntt_engine(impl):
-            busy.append(device_busy(
-                f"NTT 2^20 {ENGINES[impl]}",
-                lambda: api.ntt_bn254(c20[impl]["gm"], c20["data"], 20),
-                c20["auto"]["out"], run["forward"]["median_ms"]))
+    def ntt_call(cs, impl):
+        def call():
+            with ntt_engine(impl):
+                return api.ntt_bn254(cs[impl]["gm"], cs["data"], cs["log_n"])
+        return call
+
+    busy = device_busy(
+        [(f"MSM 2^{sl['log_n']}",
+          lambda sl=sl: api.msm_bn254_with_cached_bases(sl["gm"],
+                                                        sl["scalars"], 0),
+          sl["want"], r["median_ms"]) for sl, r in zip(sizes, runs)] +
+        [(f"NTT 2^{cs['log_n']} {ENGINES[impl]}", ntt_call(cs, impl),
+          cs["auto"]["out"], run["forward"]["median_ms"])
+         for cs, r4, r2 in zip(cases, ntt_runs, r2_runs)
+         for impl, run in (("auto", r4), ("pallas", r2))])
     for sl in sizes:
         sl["gm"].deinit()
     for cs in (*cases, bls_case):
         for impl in ENGINES:
             cs[impl]["gm"].deinit()
+
+    # bounds a launch at the 2^20 shapes: the MSM kernels' from the 2^20
+    # checks (point ops: padd on the bucket tables), fmul's and the DFT's
+    # from the 2^20 NTT's passes, small_ntt's the mean over its three passes
+    bounds = {k: res20[k]["bound_ms"] for k in MSM_KERNELS}
+    bounds.update({k: res[k]["bound_ms"] for k in ("fmul", "dft")})
+    bounds["small_ntt"] = (res["small_ntt"]["bound_ms"] +
+                           2 * res["small_ntt_k64"]["bound_ms"]) / 3
+    ranking = gap_ranking(busy, bounds)
 
     kernels = [{"name": k, "route": "cuda",
                 "source": f"panda_tpu_torch/csrc/{k}.cu",
@@ -1019,6 +1306,8 @@ def main() -> int:
                     "bls12_377": bls_runs, "stages": stages, "busy": busy,
                     "point_ops_variants": res["point_ops_variants"],
                     "small_ntt_k64": res["small_ntt_k64"],
+                    "dft_k4": res["dft_k4"], "msm_2_20_shapes": res20,
+                    "ranking": ranking, "ptxas": usage,
                     "card": card}))
     log(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
         "after its imports")

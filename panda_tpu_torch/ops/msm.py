@@ -40,19 +40,39 @@ from . import reduce as red
 # Largest n the port runs; beyond it the JAX package chunks the points.
 MAX_N = 1 << 20
 
-# Upper bound on W_g * n elements staged by one phase-A pass (the JAX
-# package's value; to be re-derived for the H100).
-_PHASE_A_BUDGET = 1 << 22
+# Phase A's geometry on the H100.  One launch runs W_g * m threads, each a
+# chain of S = n / m mixed adds that depend on each other, so the card is
+# filled by threads in flight: csrc/phase_a.cu caps a thread at 128
+# registers (launch bounds 128 x 4), which keeps 16 warps resident on each
+# of the 132 SMs, 67,584 threads in all.  Every launch gets the least lane
+# count with at least _PHASE_A_THREADS = 2^16 threads (the JAX package's
+# 2^14 was sized on a v5e to fill its limb kernels: 4 warps an SM here),
+# which still fits that one wave: 20 x 3277 (20 steps) at 2^16, 16 x 4096
+# (256 steps) at 2^20.
+_PHASE_A_THREADS = 1 << 16
+
+# Upper bound on W_g * n entries staged by one phase-A launch: 2^24, so all
+# 16 windows of a 2^20 MSM run in one launch.  An entry costs ~108 bytes
+# (key and index 8, emission key and sum 100): ~1.8 GB of the card's 80 GB
+# (the JAX package's 2^22 was sized for 16 GB of HBM).
+_PHASE_A_BUDGET = 1 << 24
 
 # Below this bucket count, per-target binary search replaces the histogram.
 _HIST_MIN_D = 512
 
 
 def default_lanes(n: int, windows: int = 1) -> int:
-    """Per-window phase-A lane count (the JAX package's rule)."""
+    """Per-window phase-A lane count: the least m with
+    windows * m >= _PHASE_A_THREADS, at most n."""
+    return max(min(-(-_PHASE_A_THREADS // max(windows, 1)), n), 1)
+
+
+def _cost_model_lanes(n: int, windows: int) -> int:
+    """The JAX package's lane rule, which window_bits' cost model keeps:
+    with default_lanes in its place the model would move c at 2^9..2^12
+    and 2^15 (re-deriving the model for the H100 is a ROADMAP item)."""
     target = max(16384 // max(windows, 1), 128)
-    m = 1 << (target.bit_length() - 1)
-    return max(min(m, n), 1)
+    return max(min(1 << (target.bit_length() - 1), n), 1)
 
 
 def signed_window_count(bits: int, c: int) -> int:
@@ -73,7 +93,7 @@ def window_bits(log_n: int, bits: int = 254) -> int:
         best_c, best_cost = 4, None
         for c in range(4, 17):
             windows = signed_window_count(bits, c)
-            m = default_lanes(n, windows)
+            m = _cost_model_lanes(n, windows)
             per_window = n + 3 * (1 << (c - 1)) + m * (m.bit_length() + 2)
             cost = windows * per_window
             if best_cost is None or cost < best_cost:
@@ -191,7 +211,8 @@ def _window_group_size(n: int, W: int) -> int:
 def window_sums(curve: CurveSpec, px, py, digits, signs,
                 c: int) -> ProjPoint:
     """Per-window sums G_w as (8, W) coordinates.  Windows run in groups
-    of at most _PHASE_A_BUDGET / n, which bounds the staged memory."""
+    of at most _PHASE_A_BUDGET / n, which bounds the staged memory: one
+    group up to 2^20 points."""
     W, n = digits.shape
     if n > MAX_N:
         raise NotImplementedError(

@@ -2,7 +2,8 @@
 
 Counterpart of ``panda_tpu/ops/phase_a_pallas.py``; the kernel is
 ``csrc/phase_a.cu`` (one thread per (window, lane), accumulator in
-registers, the base gather and the y negation in-kernel).
+registers, the base gather and the y negation in-kernel, the next step's
+loads issued before each mixed add).
 
 Inputs (int32 tensors of uint32 words), with S steps of m lanes:
   keys, sidx   (W, S, m)  sorted digits; point index | sign << 31
@@ -10,7 +11,11 @@ Inputs (int32 tensors of uint32 words), with S steps of m lanes:
 Outputs:
   ekeys        (W, S, m)  key of the run that ended before each step
                           (``dead`` where none did)
-  epts         ProjPoint of (8, W, S, m): that run's sum (identity if none)
+  epts         ProjPoint of (8, W, S, m): that run's sum, defined only
+                          where ``ekeys != dead`` (the kernel stores a sum
+                          only where a run ends and leaves the rest
+                          unwritten; the plain version writes the identity
+                          there)
   tkeys        (W, m)     each lane's final key
   tpts         ProjPoint of (8, W, m): each lane's final run sum
 """

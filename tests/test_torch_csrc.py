@@ -51,13 +51,6 @@ template <class F>
 void fmul_all(In a, In b, Out r, int64_t n, int canonical_out) {
   for (int64_t i = 0; i < n; ++i) fmul_elem<F>(a, b, r, i, n, canonical_out);
 }
-template <class F>
-void dft_all(In x, In mat, Out out, int64_t nb, int K, int canonical_out) {
-  for (int64_t c = 0; c < nb; ++c)
-    for (int k = 0; k < K; ++k)
-      store_fe(out + (int64_t)k * nb, c, (int64_t)K * nb,
-               dft_elem<F>(x + c, nb, mat, K, k, canonical_out));
-}
 // The kernel's steps for one column at a time (a tile of one column).
 template <class F>
 void small_ntt_all(In x, In tw, In pre, In scale, Out out, int64_t nb,
@@ -126,8 +119,8 @@ void h_fmul(In a, In b, Out r, int64_t n, int canonical_out, int field) {
 }
 void h_dft(In x, In mat, Out out, int64_t nb, int K, int canonical_out,
            int field) {
-  if (field) dft_all<Fr377>(x, mat, out, nb, K, canonical_out);
-  else dft_all<Fr254>(x, mat, out, nb, K, canonical_out);
+  if (field) dft_host<Fr377>(x, mat, out, nb, K, canonical_out);
+  else dft_host<Fr254>(x, mat, out, nb, K, canonical_out);
 }
 void h_small_ntt(In x, In tw, In pre, In scale, Out out, int64_t nb,
                  int log_k, int64_t pre_cols, int reduce_in,
@@ -323,15 +316,20 @@ def test_phase_a_bit_identical(host):
     ek, ep, tk, tp = phase_a.scan_plain(BN254, k5, s5, base.x, base.y, D + 1)
     P = W * S * m
     o_ek = np.empty((W, S, m), np.uint32)
-    o_e = [np.empty((8, P), np.uint32) for _ in range(3)]
+    o_e = [np.full((8, P), 0xA5A5A5A5, np.uint32) for _ in range(3)]
     o_tk = np.empty((W, m), np.uint32)
     o_t = [np.empty((8, W * m), np.uint32) for _ in range(3)]
     _call(host.h_phase_a, _np(k5), _np(s5), _np(base.x), _np(base.y), n,
           o_ek, *o_e, o_tk, *o_t, W, m, S, ("i32", D + 1))
     np.testing.assert_array_equal(o_ek.view(np.int32), _np(ek))
     np.testing.assert_array_equal(o_tk.view(np.int32), _np(tk))
+    # emissions are defined where a run ended; nothing is stored elsewhere
+    ended = _np(ek).reshape(P) != D + 1
+    assert 0 < ended.sum() < P
     for o, e in zip(o_e, ep):
-        np.testing.assert_array_equal(o.view(np.int32), _np(e).reshape(8, P))
+        np.testing.assert_array_equal(o.view(np.int32)[:, ended],
+                                      _np(e).reshape(8, P)[:, ended])
+        assert (o[:, ~ended] == 0xA5A5A5A5).all()
     for o, e in zip(o_t, tp):
         np.testing.assert_array_equal(o.view(np.int32),
                                       _np(e).reshape(8, W * m))
@@ -374,12 +372,16 @@ def test_fmul_bit_identical(host, fr):
 
 
 @NTT_FIELDS
-@pytest.mark.parametrize("log_k", [1, 3, 5])
-def test_dft_bit_identical(host, log_k, fr):
-    """dft.cu's body against the plain version, forward and with a scale
-    and the canonical pass, on words that include values >= r."""
+@pytest.mark.parametrize("log_k,nb", [(0, 6), (2, 132), (5, 70)])
+def test_dft_bit_identical(host, log_k, nb, fr):
+    """dft.cu's block loop (stage copies, fragment loads, the tensor-core
+    product through the host emulation of mma.m16n8k32 u8, the epilogue)
+    against the plain version, forward and with a scale and the canonical
+    pass, on words that include values >= r.  Each nb leaves a partial
+    column tile (64 columns a block at K = 32, 128 at K = 4, 512 at K = 1);
+    nb = 132 takes the 4-word copies, the others single words."""
     r = fr.modulus
-    K, nb = 1 << log_k, 6
+    K = 1 << log_k
     rng = random.Random(log_k)
     vals = [rng.randrange(1 << 256) for _ in range(K * nb)]
     vals[:3] = [(1 << 256) - 1, r, 2 * r - 1]

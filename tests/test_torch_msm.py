@@ -159,6 +159,60 @@ def test_msm_above_2_20_is_not_ported():
         msm.window_sums(BN254, px, px, digits, digits.bool(), 16)
 
 
+def test_phase_a_geometry_for_the_h100():
+    """The H100 lane rule: every phase-A launch of the 2^16 and 2^20 MSMs
+    runs >= 2^16 threads, all 16 windows of 2^20 in one launch, the tests'
+    n still give one lane per point, and window_bits keeps its choices."""
+    from panda_tpu_torch.ops import msm
+    assert (msm.window_bits(16), msm.window_bits(20)) == (13, 16)
+    for log_n, groups in ((16, 1), (20, 1)):
+        n = 1 << log_n
+        W = msm.signed_window_count(FR.bits, msm.window_bits(log_n))
+        wg = msm._window_group_size(n, W)
+        assert -(-W // wg) == groups
+        assert wg * msm.default_lanes(n, wg) >= 1 << 16
+    for n in (48, 64):
+        W = msm.signed_window_count(FR.bits, msm.window_bits(6))
+        assert msm.default_lanes(n, W) == n == msm._cost_model_lanes(n, W)
+
+
+def test_bucket_tables_do_not_depend_on_the_lane_count():
+    """Phase A's geometry moves no bucket.  With the plain versions at
+    n = 300, the steps per lane of the JAX lane rule and of the H100 rule at
+    2^16 (S = 128 and 20: m = 3 and 15 here, both with padding) give equal
+    bucket tables after affine normalisation, which hold the definition."""
+    from panda_tpu_torch.curves import point as cp
+    from panda_tpu_torch.ops import msm
+    n, c = 300, 9
+    W, D = msm.signed_window_count(FR.bits, c), 1 << (c - 1)
+    rng = np.random.default_rng(300)
+    mags = rng.integers(0, D + 1, size=(W, n))
+    mags[:, :40] = 5                                   # one long run
+    negs = rng.integers(0, 2, size=(W, n)).astype(bool)
+    pool = [curve_ref.random_point(BN254, random.Random(s)) for s in range(24)]
+    pts = [pool[i] for i in rng.integers(len(pool), size=n)]
+    R = mont.radix(FP)
+    px, py = (mont.words_tensor(mont.ints_to_words(
+        FP, [v * R % FP.modulus for v in vals])) for vals in zip(*pts))
+    d, s = torch.from_numpy(mags.astype(np.int32)), torch.from_numpy(negs)
+    steps = [-(-(1 << 16) // m) for m in (msm._cost_model_lanes(1 << 16, 20),
+                                          msm.default_lanes(1 << 16, 20))]
+    assert steps == [128, 20]
+    old, new = (msm._bucket_tables(BN254, px, py, d, s, c, -(-n // S))
+                for S in steps)
+    assert bool(cp.eq(BN254, old, new).all())
+    p = FP.modulus
+    for w, b in ((0, 5), (3, 1), (W - 1, D)):
+        acc = None
+        for i in np.nonzero(mags[w] == b)[0]:
+            acc = curve_ref.ec_add(BN254, acc, curve_ref.ec_neg(
+                BN254, pts[i]) if negs[w, i] else pts[i])
+        x, y, z = (mont.words_to_ints(a[:, w, b - 1].reshape(8, 1))[0]
+                   for a in new)             # Montgomery factors cancel
+        assert acc is not None and z % p
+        assert (x * pow(z, -1, p) % p, y * pow(z, -1, p) % p) == acc
+
+
 def test_wrappers_take_no_other_device():
     """A wrapper takes its plain version only for CPU tensors: any other
     device launches the kernel or raises, never falls back."""
