@@ -6,7 +6,7 @@
 Phases, each of which raises on failure (the exit code is then non-zero):
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
-2. build the eight CUDA kernels from panda_tpu_torch/csrc, in parallel,
+2. build the nine CUDA kernels from panda_tpu_torch/csrc, in parallel,
    and log each kernel entry's registers and spills (ptxas -v);
 3. each kernel against its plain PyTorch version on the card, at its main
    path's shapes: the five MSM kernels at n = 2^16 points (c = 13, W = 20,
@@ -19,14 +19,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    the radix-2 pass small_ntt at K = 256, nb = 2^12 with its T1 table and
    at K = 64, nb = 2^14 (the radix-2 2^20 NTT's passes), forward and with
    the inverse's scale and the canonical store, on words that include
-   values >= 2r: equal words, for BN254 Fr and BLS12-377 Fr.  Each kernel's
-   device time a launch (the median of torch.profiler's CUDA kernel
-   records over a batch of calls) and the batch's time from CUDA events,
-   beside the least time the card could take (bytes over 3.35 TB/s or
-   operations over the peak rate, the larger) and, where one PyTorch call
-   computes the same function, that call's time (torch._int_mm beside the
-   DFT as a yardstick of the int8 tensor cores).  The BLS12-381 NTT and a
-   BLS12-377 MSM on the card raise NotImplementedError;
+   values >= 2r: equal words, for BN254 Fr and BLS12-377 Fr; the gather
+   probe's dg3 at its four depths R = 8, 32, 256 and 1024 (G = 2^22 /
+   (128 R)): equal words (the kernels line gives R = 8's times).  Each
+   kernel's device time a launch (the median of torch.profiler's CUDA
+   kernel records over a batch of calls) and the batch's time from CUDA
+   events, beside the least time the card could take (bytes over 3.35
+   TB/s or operations over the peak rate, the larger) and, where one
+   PyTorch call computes the same function, that call's time
+   (torch._int_mm beside the DFT as a yardstick of the int8 tensor cores,
+   torch.gather beside dg3).  The BLS12-381 NTT and a BLS12-377 MSM on the
+   card raise NotImplementedError;
 4. the main paths, each with every launch counter set to 0 just before it
    and read after it (each of its kernels must have launched): the MSM
    slice, api.msm_bn254_with_cached_bases at n = 2^16 and 2^20 with cached
@@ -40,7 +43,12 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    bytes must equal the four-step engine's, and whose steady 2^20 call
    must launch small_ntt and no dft; the BLS12-377 NTT with both engines,
    at 2^12 against the oracle and at 2^20 (roundtrip, spot checks, 10
-   timed calls);
+   timed calls); the gather probe (tools/profile_gather4.py's port,
+   panda_tpu_torch.tools.profile_gather4.main) at its full sizes, whose
+   dg3 cases must launch dg3, and then one measurement beside it: 2^24
+   lookups of a base point in phase A's own layout (index_select from the
+   (8, 2^20) word tensors of the 2^20 MSM session), beside the probe's
+   R = 16 row gather and phase A's device ms a launch at 2^20;
 5. where the time goes: the MSM call (both sizes) and the 2^20 NTT call of
    each engine run stage by stage with a device synchronise around each
    stage, median, min and max of 10 calls;
@@ -152,7 +160,8 @@ KERNEL_NAMES = {"digits": ("digits_kernel",), "hist": ("hist_kernel",),
                 "phase_a": ("phase_a_kernel",),
                 "point_ops": ("padd_kernel", "pmadd_kernel", "pdbl_kernel"),
                 "wscan": ("wscan_kernel",), "fmul": ("fmul_kernel",),
-                "dft": ("dft_kernel",), "small_ntt": ("small_ntt_kernel",)}
+                "dft": ("dft_kernel",), "small_ntt": ("small_ntt_kernel",),
+                "dg3": ("dg3_kernel",)}
 
 
 def kernel_records(events, names, within=None) -> list:
@@ -579,6 +588,77 @@ def ntt_kernel_checks(fr, log_n: int, device,
                                  "library_ms": None})
         res["small_ntt_k64"] = timing[64]
     return res
+
+
+def gather_checks(device, timer: DeviceTimes) -> dict:
+    """Phase 3 for dg3 at the gather probe's shapes: R = 8, 32, 256 and 1024
+    with G = 2^22 / (128 R), tables and indices drawn as the probe draws
+    them.  Kernel and plain version must give equal words.  Returns per R:
+    max_abs_err, batch ms, plain ms, bound (the table, indices and output,
+    4 bytes each a lookup) and torch.gather's ms on int64 indices converted
+    before the timing; ``timer`` fills in the device ms a launch."""
+    import torch
+    from panda_tpu_torch.tools import profile_gather4 as pg
+    g = torch.Generator(device=device).manual_seed(4)
+    by_r = {}
+    for R in pg.DEPTHS:
+        G = max(1, (1 << 22) // (R * pg.COLS))
+        tab, idx = (torch.randint(0, hi, (G, R, pg.COLS), dtype=torch.int32,
+                                  generator=g, device=device)
+                    for hi in (1 << 31, R))
+        k, p = pg.dg3(tab, idx), pg.dg3_plain(tab, idx)
+        if not torch.equal(k, p):
+            raise AssertionError(f"dg3 R = {R}: kernel disagrees with plain")
+        idx64 = idx.long()
+        row = by_r[R] = {
+            "max_abs_err": word_err(k, p),
+            "batch_ms": cuda_ms(lambda: pg.dg3(tab, idx), 20),
+            "plain_ms": cuda_ms(lambda: pg.dg3_plain(tab, idx), 20),
+            **bound(3 * 4 * G * R * pg.COLS, 0, IMAD_PER_S),
+            "library_ms": cuda_ms(lambda: torch.gather(tab, 1, idx64), 20)}
+        timer.add(lambda tab=tab, idx=idx: pg.dg3(tab, idx), 20,
+                  KERNEL_NAMES["dg3"], row)
+        log(f"[kernels] dg3 R = {R}, G = {G}: {row}")
+    return by_r
+
+
+def probe_layout_line(sl: dict, probe: list, phase_a_ms: float,
+                      card: str) -> dict:
+    """Phase 4, after the gather probe: 2^24 random lookups of a base point
+    in phase A's layout, index_select of the same columns from the (8, n)
+    x and y word tensors of the 2^20 MSM session (16 separate words a
+    point), CUDA events over 5 calls; then the same with the indices cut
+    below n / 8 (2 x 4 MiB of table, which the 50 MB L2 holds).  Printed
+    beside the probe's R = 16 row gather (one 64-byte row a point) and
+    phase A's device ms a launch at 2^20, which makes as many lookups.  A
+    measurement only."""
+    import torch
+    px, py = sl["gm"].d_bases[0]
+    n, ni = px.shape[1], 1 << 24
+    g = torch.Generator(device=px.device).manual_seed(24)
+    idx = torch.randint(0, n, (ni,), dtype=torch.int32, generator=g,
+                        device=px.device)
+    ms = cuda_ms(lambda: (px.index_select(1, idx), py.index_select(1, idx)),
+                 5)
+    low = idx & ((n >> 3) - 1)
+    ms_l2 = cuda_ms(lambda: (px.index_select(1, low),
+                             py.index_select(1, low)), 5)
+    nbytes = 2 * px.numel() * 4 + ni * 4 + 2 * 8 * ni * 4
+    row16 = next(r for r in probe if r["case"] == "row gather"
+                 and r["R"] == 16)
+    out = {"ms": ms, "bytes": nbytes, **bound(nbytes, 0, IMAD_PER_S),
+           "ms_table_in_l2": ms_l2,
+           "row_gather_r16_ms": row16["ms"],
+           "row_gather_r16_bound_ms": row16["bound_ms"],
+           "phase_a_2_20_ms": phase_a_ms}
+    log(f"[probe] phase-A layout: {ni} lookups of a point from px, py "
+        f"(8, {n}) int32: {ms:.4f} ms a call ({nbytes / ms / 1e6:.1f} GB/s, "
+        f"bound {out['bound_ms']:.4f} ms, bytes; {ms_l2:.4f} ms with the "
+        f"indices below {n >> 3}); row layout R = 16 "
+        f"(n, 16) int32: {row16['ms']:.4f} ms (bound "
+        f"{row16['bound_ms']:.4f}); phase A at 2^20: {phase_a_ms:.4f} ms a "
+        f"launch for as many lookups, on {card}")
+    return out
 
 
 def bls_raises(device) -> None:
@@ -1131,11 +1211,13 @@ REPLACES = {"digits": "panda_tpu/ops/digits_pallas.py:77",
             "wscan": "panda_tpu/ops/point_pallas.py:167",
             "fmul": "panda_tpu/ops/point_pallas.py:251",
             "dft": "panda_tpu/ops/ntt_fused.py:83",
-            "small_ntt": "panda_tpu/ops/ntt_pallas.py:130"}
+            "small_ntt": "panda_tpu/ops/ntt_pallas.py:130",
+            "dg3": "tools/profile_gather4.py:78"}
 MSM_KERNELS = ("digits", "hist", "phase_a", "point_ops", "wscan")
 NTT_KERNELS = ("fmul", "dft")
 RADIX2_KERNELS = ("small_ntt",)
 BLS_KERNELS = ("fmul", "dft", "small_ntt")
+PROBE_KERNELS = ("dg3",)
 
 
 def gap_ranking(busy: list, bounds: dict) -> list:
@@ -1159,7 +1241,8 @@ def gap_ranking(busy: list, bounds: dict) -> list:
                          per_launch, "gap_ms": v["launches"] *
                          (per_launch - bounds[k])})
     rows.sort(key=lambda r: -r["gap_ms"])
-    log("[ranking] per call at 2^20, launches x (device ms - bound): " +
+    log("[ranking] per call at 2^20, launches x (device ms - bound); dg3 is "
+        "on no path of the system and is not ranked: " +
         "; ".join(f"{r['kernel']} ({r['call']}) {r['launches']} x "
                   f"{r['device_ms_a_launch']:.4f} ms, gap {r['gap_ms']:.3f} ms"
                   for r in rows))
@@ -1223,7 +1306,10 @@ def main() -> int:
     res.update(ntt_kernel_checks(fr, 20, device, timer))
     ntt_kernel_checks(BLS12_377.fr, 20, device, None)
     bls_raises(device)
+    dg3_by_r = gather_checks(device, timer)
     timer.take()
+    res["dg3"] = dict(dg3_by_r[8], max_abs_err=max(
+        r["max_abs_err"] for r in dg3_by_r.values()))
     log("[kernels] device ms a launch (torch.profiler), batch ms a call, "
         "bound ms: " + "; ".join(
             f"{k}{tag} {v['ms']:.4f} ({v['recorded']}), {v['batch_ms']:.4f}, "
@@ -1260,7 +1346,25 @@ def main() -> int:
     ntt_runs, ntt_counts = counted(NTT_KERNELS, four_step)
     r2_runs, r2_counts = counted(RADIX2_KERNELS, radix2)
     bls_runs, bls_counts = counted(BLS_KERNELS, bls12_377)
-    for c in (ntt_counts, r2_counts, bls_counts):
+
+    def probe():
+        from panda_tpu_torch.tools import profile_gather4
+        rows = profile_gather4.main(device)
+        if [(r["case"], r["R"]) for r in rows] != \
+                [("row gather", R) for R in (9, 12, 16, 8)] + \
+                [("dg3", R) for R in profile_gather4.DEPTHS] or \
+                not all(0 < r["ms"] < float("inf") for r in rows):
+            raise AssertionError(f"gather probe: unexpected cases {rows}")
+        for r in rows:
+            r.update(bound(r["bytes"], 0, IMAD_PER_S))
+        log("[probe] bound ms a call (bytes): " + ", ".join(
+            f"{r['case']} R = {r['R']} {r['bound_ms']:.4f}" for r in rows))
+        return rows
+
+    probe_rows, probe_counts = counted(PROBE_KERNELS, probe)
+    layout = probe_layout_line(sizes[1], probe_rows, res20["phase_a"]["ms"],
+                               card)
+    for c in (ntt_counts, r2_counts, bls_counts, probe_counts):
         for k, v in c.items():
             counts[k] += v
 
@@ -1307,6 +1411,8 @@ def main() -> int:
                     "point_ops_variants": res["point_ops_variants"],
                     "small_ntt_k64": res["small_ntt_k64"],
                     "dft_k4": res["dft_k4"], "msm_2_20_shapes": res20,
+                    "dg3_by_R": dg3_by_r, "probe": probe_rows,
+                    "phase_a_layout": layout,
                     "ranking": ranking, "ptxas": usage,
                     "card": card}))
     log(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "

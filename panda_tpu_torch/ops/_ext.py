@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build" / "panda_tpu_torch"
 KERNELS = ("digits", "hist", "phase_a", "point_ops", "wscan", "fmul", "dft",
-           "small_ntt")
+           "small_ntt", "dg3")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

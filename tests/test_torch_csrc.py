@@ -29,6 +29,7 @@ from panda_tpu_torch.fields.config import BLS12_377_FR, BN254_FP, BN254_FR
 from panda_tpu_torch.ops import (_ext, digits, fmul, hist, ntt_fused,
                                  ntt_pallas, phase_a, point_kernels)
 from panda_tpu_torch.reference import curve_ref
+from panda_tpu_torch.tools import profile_gather4
 
 CSRC = _ext.CSRC
 NTT_FIELDS = pytest.mark.parametrize("fr", [BN254_FR, BLS12_377_FR],
@@ -42,6 +43,7 @@ HARNESS = r"""
 #include "fmul.cu"
 #include "dft.cu"
 #include "small_ntt.cu"
+#include "dg3.cu"
 #include <vector>
 using namespace ptt;
 typedef const uint32_t* In;
@@ -71,6 +73,20 @@ void small_ntt_all(In x, In tw, In pre, In scale, Out out, int64_t nb,
       small_ntt_store<F>(out, nb, K, k, c, load_fe(col.data() + k, 0, K),
                          scale, canonical_out);
   }
+}
+
+// The kernel's blocks one after another: stage the (g, c0) tile, then look
+// up every element of it.
+void dg3_all(const int32_t* tab, const int32_t* idx, int32_t* out, int64_t G,
+             int R) {
+  std::vector<int32_t> tile((size_t)R * kDg3Tile);
+  for (int64_t g = 0; g < G; ++g)
+    for (int c0 = 0; c0 < kDg3Cols; c0 += kDg3Tile) {
+      for (int e = 0; e < R * kDg3Tile; ++e)
+        dg3_stage(tab, tile.data(), g, R, c0, e);
+      for (int e = 0; e < R * kDg3Tile; ++e)
+        dg3_lookup(tile.data(), idx, out, g, R, c0, e);
+    }
 }
 
 extern "C" {
@@ -131,6 +147,10 @@ void h_small_ntt(In x, In tw, In pre, In scale, Out out, int64_t nb,
   else
     small_ntt_all<Fr254>(x, tw, pre, scale, out, nb, log_k, pre_cols,
                          reduce_in, canonical_out);
+}
+void h_dg3(const int32_t* tab, const int32_t* idx, int32_t* out, int64_t G,
+           int R) {
+  dg3_all(tab, idx, out, G, R);
 }
 }
 """
@@ -431,3 +451,22 @@ def test_small_ntt_bit_identical(host, log_k, pre, fr):
         np.testing.assert_array_equal(out.view(np.int32), _np(want))
         assert all(v < (r if canon else 2 * r)
                    for v in mont.words_to_ints(out.reshape(8, -1)))
+
+
+@pytest.mark.parametrize("R", profile_gather4.DEPTHS)
+def test_dg3_bit_identical(host, R):
+    """dg3.cu's staging and lookup, block by block, against the plain
+    version on int32 words that include negative bit patterns; an index
+    outside [0, R) gives 0 and reads nothing."""
+    G = 3
+    rng = np.random.default_rng(R)
+    tab = rng.integers(-(1 << 31), 1 << 31, size=(G, R, 128)).astype(np.int32)
+    idx = rng.integers(R, size=(G, R, 128)).astype(np.int32)
+    out = np.empty_like(tab)
+    _call(host.h_dg3, tab, idx, out, G, ("i32", R))
+    want = profile_gather4.dg3_plain(torch.from_numpy(tab),
+                                     torch.from_numpy(idx))
+    np.testing.assert_array_equal(out, _np(want))
+    idx[0, 0, :3] = [-1, R, 1 << 30]
+    _call(host.h_dg3, tab, idx, out, G, ("i32", R))
+    assert (out[0, 0, :3] == 0).all()

@@ -240,6 +240,7 @@ def test_package_imports_without_jax():
                 "from panda_tpu_torch.runtime import api, manager\n"
                 "from panda_tpu_torch.ops import _ext, msm, ntt\n"
                 "from panda_tpu_torch.reference import curve_ref, ntt_ref\n"
+                "from panda_tpu_torch.tools import profile_gather4\n"
                 + FOREIGN], ROOT)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"
