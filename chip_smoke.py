@@ -7,10 +7,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
 2. build the nine CUDA kernels from panda_tpu_torch/csrc, in parallel,
-   and log each kernel entry's registers and spills (ptxas -v);
+   and log each kernel entry's registers and spills (ptxas -v), each
+   template instantiation by its curve or field, the BN254 ones beside
+   their registers from before the kernels took a curve;
 3. each kernel against its plain PyTorch version on the card, at its main
    path's shapes: the five MSM kernels at n = 2^16 points (c = 13, W = 20,
-   D = 4096) and at n = 2^20 (c = 16, W = 16, D = 32768): exact equality
+   D = 4096) and at n = 2^20 (c = 16, W = 16, D = 32768) for BN254, and
+   for BLS12-377 and BLS12-381 (12-word coordinates, c from the scalar
+   field's bits, the same geometry) at 2^16 and, for digits, hist and
+   phase A, at 2^20 (where phase A is also timed with its indices cut
+   below n / 8, the bases' table in L2, a measurement only): exact
+   equality
    for the digits and the histogram, point equality for the point ops,
    phase A (through the bucket tables it yields, its keys and tails) and
    the weighted scan; fmul at (8, 2^20), the DFT at K = 32, nb = 2^15 (the
@@ -28,13 +35,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    TB/s or operations over the peak rate, the larger) and, where one
    PyTorch call computes the same function, that call's time
    (torch._int_mm beside the DFT as a yardstick of the int8 tensor cores,
-   torch.gather beside dg3).  The BLS12-381 NTT and a BLS12-377 MSM on the
-   card raise NotImplementedError;
+   torch.gather beside dg3).  The BLS12-381 NTT on the card raises
+   NotImplementedError;
 4. the main paths, each with every launch counter set to 0 just before it
    and read after it (each of its kernels must have launched): the MSM
    slice, api.msm_bn254_with_cached_bases at n = 2^16 and 2^20 with cached
    bases, every call held to the pool-aggregated big-integer oracle, host
-   wall time of 20 calls; the NTT byte API with the four-step engine
+   wall time of 20 calls; the BLS MSMs, each curve counted on its own,
+   after a check that the bases ingest on the card equals the CPU's for
+   48-byte coordinates: api.msm_bls12_377 / api.msm_bls12_381 (bases
+   bytes in every call) and api.msm_with_cached_bases at 2^16 and 2^20,
+   10 and 20 timed calls each, every blob equal to the oracle's; the NTT
+   byte API with the four-step engine
    (PANDA_NTT_IMPL=auto): api.ntt_bn254, api.intt and api.ntt_bn254_v1 (a
    non-default root) at 2^20 and 2^22, held to a bit-exact INTT roundtrip
    and 4 big-integer spot checks each, and at 2^12 to the NTT oracle byte
@@ -49,14 +61,15 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    lookups of a base point in phase A's own layout (index_select from the
    (8, 2^20) word tensors of the 2^20 MSM session), beside the probe's
    R = 16 row gather and phase A's device ms a launch at 2^20;
-5. where the time goes: the MSM call (both sizes) and the 2^20 NTT call of
-   each engine run stage by stage with a device synchronise around each
-   stage, median, min and max of 10 calls;
-6. the device's busy share of one call each (MSM 2^16 and 2^20, NTT 2^20
-   and 2^22 with each engine), and each kernel's launches and device ms in
-   that call, from torch.profiler.
+5. where the time goes: the MSM call (BN254 at both sizes, BLS12-381 at
+   2^20) and the 2^20 NTT call of each engine run stage by stage with a
+   device synchronise around each stage, median, min and max of 10 calls;
+6. the device's busy share of one call each (MSM 2^16 and 2^20, BLS12-377
+   and BLS12-381 MSM 2^20, NTT 2^20 and 2^22 with each engine), and each
+   kernel's launches and device ms in that call, from torch.profiler.
 
-The second-to-last line is a JSON object with one entry per kernel; the last
+The second-to-last line is a JSON object with one entry per kernel (the
+four curve-templated MSM kernels with a record for each curve); the last
 line is {"ok": true, "device": {...}}.  Inputs come from fixed seeds.
 """
 
@@ -246,12 +259,19 @@ def word_err(a, b) -> int:
 # Peak rates of one H100 SXM at its full 700 W limit.  Memory and int8
 # tensor cores: NVIDIA's H100 data sheet.  32-bit
 # integer multiply-add: 64 per SM per clock (Hopper architecture white
-# paper) x 132 SMs x 1.98 GHz boost; every CIOS multiply is 264 of them
-# (8 x (16 + 1 + 16)), and the lo and hi halves count separately.
+# paper) x 132 SMs x 1.98 GHz boost; a CIOS multiply over N words is
+# 4 N^2 + N of them (N x (2N + 1 + 2N): a b_i's lo and hi halves, m, m p's
+# lo and hi halves), 264 at N = 8 and 588 at N = 12.
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 IMAD_PER_S = 64 * 132 * 1.98e9
-MONT_MUL_IMADS = 264
+
+
+def cios_imads(words: int) -> int:
+    return 4 * words * words + words
+
+
+MONT_MUL_IMADS = cios_imads(8)
 
 
 def bound(nbytes: float, ops: float, rate: float) -> dict:
@@ -279,7 +299,7 @@ def pool_inputs(curve, n: int, seed: int, oracle: bool = True):
     xw = mont.ints_to_words(fp, [fp.to_wire_int(x) for x, _ in pts])
     yw = mont.ints_to_words(fp, [fp.to_wire_int(y) for _, y in pts])
     sw = mont.ints_to_words(fr, [fr.to_wire_int(s) for s in svals])
-    xy = np.stack([xw[:, pidx].T, yw[:, pidx].T], axis=1)    # (n, 2, 8)
+    xy = np.stack([xw[:, pidx].T, yw[:, pidx].T], axis=1)    # (n, 2, L)
     bases = np.ascontiguousarray(xy).astype("<u4").tobytes()
     scalars = np.ascontiguousarray(sw[:, sidx].T).astype("<u4").tobytes()
     if not oracle:
@@ -292,26 +312,34 @@ def pool_inputs(curve, n: int, seed: int, oracle: bool = True):
 
 
 def kernel_checks(curve, n: int, device, timer: DeviceTimes,
-                  plain_times: bool = True) -> dict:
-    """Phase 3: each kernel against its plain version at the main-path
-    shapes for n points.  Returns {kernel: {max_abs_err, batch_ms (CUDA
+                  plain_times: bool = True,
+                  through_phase_a: bool = False) -> dict:
+    """Phase 3: each MSM kernel of ``curve`` against its plain version at
+    the main-path shapes for n points (with ``through_phase_a``, digits,
+    hist and phase A only).  Returns {kernel: {max_abs_err, batch_ms (CUDA
     events around a batch), plain_ms (None unless ``plain_times``),
     bound_ms, bound_by, library_ms}}; ``timer`` fills in "ms", the device
-    ms a launch, when it takes its batches."""
+    ms a launch, when it takes its batches.  Bounds count L = 8 or 12 words
+    a coordinate (fe bytes a field element, cios_imads(L) a multiply); the
+    digits' one multiply is over the 8-word scalar field."""
     import torch
     from panda_tpu_torch.curves import point as cp
     from panda_tpu_torch.curves.point import AffinePoint, ProjPoint
+    from panda_tpu_torch.fields import mont
     from panda_tpu_torch.ops import (digits, hist, msm, phase_a,
                                      point_kernels, reduce)
     from panda_tpu_torch.runtime.manager import PandaManager
 
     res = {}
-    imad = lambda muls: muls * MONT_MUL_IMADS            # noqa: E731
-    c = msm.window_bits((n - 1).bit_length())
+    L = mont.n_words(curve.fp)
+    fe = 4 * L
+    imad = lambda muls: muls * cios_imads(L)             # noqa: E731
+    c = msm.window_bits((n - 1).bit_length(), bits=curve.fr.bits)
     W = msm.signed_window_count(curve.fr.bits, c)
     D = 1 << (c - 1)
     m = msm.default_lanes(n, W)
-    log(f"[kernels] n={n} c={c} W={W} D={D} lanes={m}")
+    tag = f"[kernels {curve.name} 2^{n.bit_length() - 1}]"
+    log(f"{tag} n={n} c={c} W={W} D={D} lanes={m} L={L}")
     bases, scalars, _ = pool_inputs(curve, n, 7, oracle=False)
     gm = PandaManager.new(0, curve, device=device)
     px, py = gm.ingest_bases(bases)
@@ -327,12 +355,13 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
         return cuda_ms(fn, reps) if plain_times else None
 
     def record(name, err, ms, plain, ok, bnd, library_ms=None):
-        log(f"[kernels 2^{n.bit_length() - 1}] {name}: max_abs_err={err} "
+        log(f"{tag} {name}: max_abs_err={err} "
             f"kernel {ms['batch_ms']:.4f} ms batch-timed, plain {plain} ms, "
             f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), library "
             f"{library_ms} ms")
         if not ok:
-            raise AssertionError(f"{name}: kernel disagrees with plain")
+            raise AssertionError(f"{name} ({curve.name}): kernel disagrees "
+                                 "with plain")
         ms.update({"max_abs_err": err, "plain_ms": plain, **bnd,
                    "library_ms": library_ms})
         res[name] = ms
@@ -346,7 +375,7 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
                  KERNEL_NAMES["digits"]),
            plain_ms(lambda: digits.signed_digits_plain(curve.fr, s, c, W), 2),
            torch.equal(km, pm) and torch.equal(kn, pn),
-           bound(n * 32 + W * n * 5, imad(n), IMAD_PER_S))
+           bound(n * 32 + W * n * 5, n * MONT_MUL_IMADS, IMAD_PER_S))
 
     # 2. histogram of the digits: exact; the library call is one bincount
     #    of the digits offset by w (D + 2) (digit 0 and dead keys binned too)
@@ -374,23 +403,38 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
         and torch.equal(ka[2], pa[2])
     err = max(word_err(a, b) for a, b in zip(kb, pb))
     runs = int((ka[0] != D + 1).sum().item())
-    log(f"[kernels 2^{n.bit_length() - 1}] phase_a: {W} windows x {m} lanes "
-        f"x {st.keys.shape[1]} steps in one launch; {live} mixed adds, "
-        f"{runs} run sums stored")
+    log(f"{tag} phase_a: {W} windows x {m} lanes x {st.keys.shape[1]} steps "
+        f"in one launch; {live} mixed adds, {runs} run sums stored")
     record("phase_a", err,
            timed(lambda: phase_a.scan(curve, st.keys, st.sidx, px, py,
                                       D + 1), 5, KERNEL_NAMES["phase_a"]),
            plain_ms(lambda: phase_a.scan_plain(curve, st.keys, st.sidx, px,
                                                py, D + 1), 1), ok,
-           bound(P * 12 + px.shape[1] * 64 + runs * 96 + W * m * 100,
-                 imad(11 * live), IMAD_PER_S))
+           bound(P * 12 + px.shape[1] * 2 * fe + runs * 3 * fe +
+                 W * m * (4 + 3 * fe), imad(11 * live), IMAD_PER_S))
+    if n >= 1 << 20:
+        # a measurement only: the same launch with every point index cut
+        # below n / 8, so the bases' table (2 x 4 or 6 MiB) sits in the
+        # 50 MB L2; what it saves is what the gather from the full table
+        # costs
+        cut = n // 8 - 1
+        low = torch.where(st.sidx < 0, (st.sidx & cut) | -(1 << 31),
+                          st.sidx & cut)
+        scan_l2 = lambda: phase_a.scan(curve, st.keys, low, px, py,  # noqa
+                                       D + 1)
+        res["phase_a_l2"] = {**res["phase_a"],
+                             "batch_ms": cuda_ms(scan_l2, 5),
+                             "table_bytes": 2 * fe * (cut + 1)}
+        timer.add(scan_l2, 5, KERNEL_NAMES["phase_a"], res["phase_a_l2"])
+    if through_phase_a:
+        return res
 
-    # 4. point ops on the bucket tables' shape (8, W, D): the interior +
+    # 4. point ops on the bucket tables' shape (L, W, D): the interior +
     #    tail add, a mixed add of bases, a doubling
     q = ProjPoint(*(a.flip(-1).contiguous() for a in kb))
     idx = torch.arange(W * D, device=device).reshape(W, D) % px.shape[1]
     qa = AffinePoint(px[:, idx], py[:, idx])
-    # bounds: (words in + out) x 32 bytes and the multiplies per element:
+    # bounds: (elements in + out) x fe bytes and the multiplies per element:
     # padd 6 + 3 words, 12M; pmadd 5 + 3, 11M; pdbl 3 + 3, 8M (6M + 2S)
     N = W * D
     errs, oks, kms, pms, bnds = [], [], [], [], []
@@ -405,10 +449,9 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
         kms.append(timed(lambda kf=kf, args=args: kf(curve, *args), 20,
                          (kname,)))
         pms.append(plain_ms(lambda: pf(curve, *args), 2))
-        bnds.append(bound(fes * 32 * N, imad(muls * N), IMAD_PER_S))
-    log(f"[kernels 2^{n.bit_length() - 1}] point_ops padd/pmadd/pdbl on "
-        f"{N} elements: batch ms {[k['batch_ms'] for k in kms]}, plain ms "
-        f"{pms}, bounds {bnds}")
+        bnds.append(bound(fes * fe * N, imad(muls * N), IMAD_PER_S))
+    log(f"{tag} point_ops padd/pmadd/pdbl on {N} elements: batch ms "
+        f"{[k['batch_ms'] for k in kms]}, plain ms {pms}, bounds {bnds}")
     res["point_ops_variants"] = {"kernel_ms": kms, "plain_ms": pms,
                                  "bounds": bnds}
     record("point_ops", max(errs), kms[0], pms[0], all(oks), bnds[0])
@@ -416,20 +459,20 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
     # 5. weighted scan on the bucket tables, split as weighted_window_sum does
     batch = W
     lanes, steps = reduce.lane_split(batch, D)
-    cols = ProjPoint(*(a.reshape(8, batch, lanes, steps).permute(0, 3, 1, 2)
-                       .reshape(8, steps, batch * lanes).contiguous()
+    cols = ProjPoint(*(a.reshape(L, batch, lanes, steps).permute(0, 3, 1, 2)
+                       .reshape(L, steps, batch * lanes).contiguous()
                        for a in kb))
     kr, kw = point_kernels.weighted_scan(curve, cols)
     pr, pw = point_kernels.weighted_scan_plain(curve, cols)
     ok = bool(cp.eq(curve, kr, pr).all()) and bool(cp.eq(curve, kw, pw).all())
     err = max(word_err(a, b) for a, b in zip((*kr, *kw), (*pr, *pw)))
     S, N = cols.x.shape[1:]
-    log(f"[kernels 2^{n.bit_length() - 1}] wscan: {S} steps x {N} columns")
+    log(f"{tag} wscan: {S} steps x {N} columns")
     record("wscan", err,
            timed(lambda: point_kernels.weighted_scan(curve, cols), 10,
                  KERNEL_NAMES["wscan"]),
            plain_ms(lambda: point_kernels.weighted_scan_plain(curve, cols), 1),
-           ok, bound(3 * 32 * S * N + 6 * 32 * N, imad(24 * S * N),
+           ok, bound(3 * fe * S * N + 6 * fe * N, imad(24 * S * N),
                      IMAD_PER_S))
     return res
 
@@ -663,23 +706,45 @@ def probe_layout_line(sl: dict, probe: list, phase_a_ms: float,
 
 def bls_raises(device) -> None:
     """What the kernels do not cover raises NotImplementedError on the card
-    (no plain version runs for a CUDA tensor): the BLS12-381 NTT, and a
-    BLS12-377 MSM."""
+    (no plain version runs for a CUDA tensor): the BLS12-381 NTT.  (Until
+    the BLS MSM kernels existed, a BLS12-377 MSM was checked here too; it
+    is now the BLS MSM path of phase 4.)"""
     from panda_tpu_torch import InitUnitType, PandaManager
     from panda_tpu_torch.runtime import api
-    for what, run in (
-            ("BLS12-381 NTT", lambda: api.ntt_bls12_381(
-                PandaManager.init_all(0, InitUnitType.NTT, curve="bls12_381",
-                                      device=device), bytes(32 * 32), 5)),
-            ("BLS12-377 MSM", lambda: api.msm(
-                PandaManager.new(0, "bls12_377", device=device),
-                bytes(32 * 16), bytes(96 * 16)))):
-        try:
-            run()
-        except NotImplementedError as e:
-            log(f"[kernels] {what} on the card raises: {e}")
-            continue
-        raise AssertionError(f"{what} ran on the card")
+    try:
+        api.ntt_bls12_381(PandaManager.init_all(
+            0, InitUnitType.NTT, curve="bls12_381", device=device),
+            bytes(32 * 32), 5)
+    except NotImplementedError as e:
+        log(f"[kernels] BLS12-381 NTT on the card raises: {e}")
+        return
+    raise AssertionError("BLS12-381 NTT ran on the card")
+
+
+def ingest_check(curve, device) -> None:
+    """The session's bases ingest (mont.reduce_wire, plain torch on the
+    session's device) on the card equals it on the CPU for 48-byte (or
+    32-byte) coordinates of any value below R, p and the top of R among
+    them, and gives canonical words."""
+    from panda_tpu_torch import PandaManager
+    from panda_tpu_torch.fields import mont
+    fp = curve.fp
+    R, p = mont.radix(fp), fp.modulus
+    g = random.Random(fp.n_bytes)
+    vals = [0, p - 1, p, 2 * p + 1, R - 1] + [g.randrange(R)
+                                              for _ in range(4091)]
+    blob = b"".join(v.to_bytes(fp.n_bytes, "little") for v in vals)
+    on_card = PandaManager.new(0, curve, device=device).ingest_bases(blob)
+    on_cpu = PandaManager.new(0, curve, device="cpu").ingest_bases(blob)
+    for a, b in zip(on_card, on_cpu):
+        if not (a.device.type == "cuda" and a.shape == (mont.n_words(fp), 2048)
+                and a.cpu().equal(b)):
+            raise AssertionError(f"{curve.name}: bases ingest on the card "
+                                 "differs from the CPU's")
+    if not all(v < p for a in on_cpu for v in mont.words_to_ints(a)):
+        raise AssertionError(f"{curve.name}: ingest left a word >= p")
+    log(f"[slice {curve.name}] bases ingest of {len(vals) // 2} points "
+        f"({fp.n_bytes}-byte coordinates) on the card equals the CPU's")
 
 
 def slice_inputs(curve, log_n: int, device) -> dict:
@@ -692,12 +757,13 @@ def slice_inputs(curve, log_n: int, device) -> dict:
     fp = curve.fp
     want = b"".join(fp.to_wire_int(v).to_bytes(fp.n_bytes, "little")
                     for v in ((*exp, 1) if exp is not None else (0, 1, 0)))
-    log(f"[slice 2^{log_n}] inputs + oracle {time.perf_counter() - t0:.1f} s")
+    log(f"[slice {curve.name} 2^{log_n}] inputs + oracle "
+        f"{time.perf_counter() - t0:.1f} s")
     gm = PandaManager.init_all(0, InitUnitType.MSM, [bases], curve=curve,
                                device=device)
     gm.sync()
-    return {"log_n": log_n, "n": n, "gm": gm, "scalars": scalars,
-            "want": want}
+    return {"curve": curve, "log_n": log_n, "n": n, "gm": gm,
+            "scalars": scalars, "bases": bases, "want": want}
 
 
 def spread(ms: list) -> dict:
@@ -705,21 +771,35 @@ def spread(ms: list) -> dict:
             "max_ms": max(ms)}
 
 
-def slice_run(sl: dict, card: str, reps: int) -> dict:
-    """Phase 4 at one size: byte-API MSM with cached bases, every call held
-    to the oracle; host wall time of ``reps`` steady-state calls, with the
-    calling thread's CPU time per call and the garbage collector's pauses,
-    so a slow call shows whether the host thread worked, waited or
-    collected."""
+def slice_run(sl: dict, card: str, reps: int, entry: str = "cached") -> dict:
+    """Phase 4 at one size: byte-API MSM, every call held to the oracle;
+    host wall time of ``reps`` steady-state calls, with the calling
+    thread's CPU time per call and the garbage collector's pauses, so a
+    slow call shows whether the host thread worked, waited or collected.
+    ``entry`` "cached" calls msm_with_cached_bases (BN254 through its alias
+    msm_bn254_with_cached_bases), "alias" the curve's msm alias with the
+    bases bytes (msm_bls12_377 / msm_bls12_381)."""
     import gc
     import torch
     from panda_tpu_torch.runtime import api
     gm, scalars, want, log_n = sl["gm"], sl["scalars"], sl["want"], sl["log_n"]
+    curve = sl["curve"]
+    if entry == "alias":
+        alias = {"bls12_377": api.msm_bls12_377,
+                 "bls12_381": api.msm_bls12_381}[curve.name]
+        call = lambda: alias(gm, scalars, sl["bases"])    # noqa: E731
+    elif curve.name == "bn254":
+        call = lambda: api.msm_bn254_with_cached_bases(   # noqa: E731
+            gm, scalars, 0)
+    else:
+        call = lambda: api.msm_with_cached_bases(gm, scalars, 0)  # noqa
+    label = f"{'' if curve.name == 'bn254' else curve.name + ' '}" \
+        f"2^{log_n}{' alias' if entry == 'alias' else ''}"
     t0 = time.perf_counter()
-    blob = api.msm_bn254_with_cached_bases(gm, scalars, 0)
+    blob = call()
     first = time.perf_counter() - t0
     if blob != want:
-        raise AssertionError(f"MSM 2^{log_n}: blob != oracle")
+        raise AssertionError(f"MSM {label}: blob != oracle")
     times, cpu, gc_ms, gc_t0 = [], [], [0.0], [0.0]
 
     def on_gc(phase, _info):
@@ -733,24 +813,25 @@ def slice_run(sl: dict, card: str, reps: int) -> dict:
         for _ in range(reps):
             torch.cuda.synchronize()
             c0, t0 = time.thread_time(), time.perf_counter()
-            blob = api.msm_bn254_with_cached_bases(gm, scalars, 0)
+            blob = call()
             times.append((time.perf_counter() - t0) * 1e3)
             cpu.append((time.thread_time() - c0) * 1e3)
             if blob != want:
-                raise AssertionError(f"MSM 2^{log_n}: repeat blob != oracle")
+                raise AssertionError(f"MSM {label}: repeat blob != oracle")
     finally:
         gc.callbacks.remove(on_gc)
     s, sc = spread(times), spread(cpu)
-    log(f"[slice 2^{log_n}] oracle-exact; first call {first:.3f} s, steady "
+    log(f"[slice {label}] oracle-exact; first call {first:.3f} s, steady "
         f"ms/call over {reps} calls: median {s['median_ms']:.2f}, min "
         f"{s['min_ms']:.2f}, max {s['max_ms']:.2f}; "
         f"{sl['n'] / s['median_ms'] * 1e3:.0f} points/s at the median on "
         f"{card}")
-    log(f"[slice 2^{log_n}] host thread CPU ms/call: median "
+    log(f"[slice {label}] host thread CPU ms/call: median "
         f"{sc['median_ms']:.2f}, min {sc['min_ms']:.2f}, max "
         f"{sc['max_ms']:.2f}; garbage collection {gc_ms[0]:.2f} ms over "
         f"{reps} calls")
-    return {"log_n": log_n, "first_s": first, **s,
+    return {"curve": curve.name, "entry": entry, "log_n": log_n,
+            "first_s": first, **s,
             "points_per_s": sl["n"] / s["median_ms"] * 1e3, "calls_ms": times,
             "cpu_ms": cpu, "gc_ms": gc_ms[0]}
 
@@ -808,19 +889,22 @@ def stage_breakdown(curve, sl: dict, reps: int) -> dict:
                 torch.cat([p[i] for p in parts], dim=1) for i in range(3))),
                 c)))
         if blob != sl["want"]:
-            raise AssertionError(f"stage breakdown 2^{log_n}: blob != oracle")
+            raise AssertionError(f"stage breakdown {curve.name} 2^{log_n}: "
+                                 "blob != oracle")
         for k in STAGES:
             rows[k].append(cur[k])
     totals = [sum(rows[k][i] for k in STAGES) for i in range(reps)]
     out = {k: spread(v) for k, v in rows.items()}
     out["total"] = spread(totals)
-    log(f"[stages 2^{log_n}] c={c} W={W} groups={W // wg} lanes={m}; ms per "
-        f"call over {reps} calls, synchronised stages (median / min / max):")
+    log(f"[stages {curve.name} 2^{log_n}] c={c} W={W} groups={W // wg} "
+        f"lanes={m}; ms per call over {reps} calls, synchronised stages "
+        "(median / min / max):")
     for k, v in out.items():
         log(f"  {k:<34} {v['median_ms']:9.3f} {v['min_ms']:9.3f} "
             f"{v['max_ms']:9.3f}")
     log(f"  launches in one call: {dict(_ext.launches)}")
-    return {"log_n": log_n, "stages": out, "launches": dict(_ext.launches)}
+    return {"curve": curve.name, "log_n": log_n, "stages": out,
+            "launches": dict(_ext.launches)}
 
 
 def device_busy(calls) -> list:
@@ -1220,15 +1304,62 @@ BLS_KERNELS = ("fmul", "dft", "small_ntt")
 PROBE_KERNELS = ("dg3",)
 
 
+# Registers a thread of each BN254 kernel entry from before the MSM kernels
+# were templated on the curve (ptxas -v, sm_90a; no stack, no spills): the
+# BN254 instantiations must compile to the same.
+BN254_REGISTERS = {"digits_kernel": 32, "hist_kernel": 16,
+                       "phase_a_kernel": 128, "padd_kernel": 96,
+                       "pmadd_kernel": 96, "pdbl_kernel": 64,
+                       "wscan_kernel": 128}
+# The struct a template instantiation names in its mangled entry, by curve.
+INSTANCE = {"bn254": ("Bn254", "Fr254"), "bls12_377": ("Bls12_377", "Fr377"),
+            "bls12_381": ("Bls12_381", "Fr381")}
+
+
+def entry_name(entry: str) -> str:
+    """A ptxas entry's kernel name and, for a template, its curve or field
+    struct (mangled names hold both)."""
+    short = next((kn for kns in KERNEL_NAMES.values() for kn in kns
+                  if kn in entry), entry[:40])
+    tags = [t for ts in INSTANCE.values() for t in ts if t in entry]
+    return f"{short}<{tags[0]}>" if tags else short
+
+
+def instance_usage(usage: dict, lib: str, curve: str) -> list:
+    """(entry, registers, stack, spill stores, spill loads) of kernel library
+    ``lib``'s instantiations for ``curve``."""
+    return [(entry_name(e), *rest) for e, *rest in usage[lib]
+            if any(t in e for t in INSTANCE[curve])]
+
+
+def bn254_register_check(usage: dict) -> list:
+    """Each BN254 instantiation of the MSM kernels against BN254_REGISTERS;
+    returns the entries that differ or spill (logged, not a gate)."""
+    differ = []
+    for lib in ("digits", "hist", "phase_a", "point_ops", "wscan"):
+        rows = usage[lib] if lib == "hist" else \
+            [(e, *r) for e, *r in usage[lib]
+             if any(t in e for t in INSTANCE["bn254"])]
+        for e, regs, stack, st, ld in rows:
+            name = entry_name(e).split("<")[0]
+            if regs != BN254_REGISTERS[name] or stack or st or ld:
+                differ.append((entry_name(e), regs, stack, st, ld))
+    log("[build] BN254 instantiations against their registers before the "
+        f"curve templates {BN254_REGISTERS}: " + ("all equal, no stack, no spills"
+                                       if not differ else f"differ: {differ}"))
+    return differ
+
+
 def gap_ranking(busy: list, bounds: dict) -> list:
-    """Per call at 2^20 (the profiled MSM call and each engine's NTT call):
-    each kernel's launches x (device ms a launch - its bound a launch at the
-    2^20 shapes), largest first: where kernel work gains the most.  A
-    kernel whose mean launch is shorter than that bound launches at smaller
-    shapes (the point ops' scans) and is left out."""
+    """Per call at 2^20 (the profiled BN254 MSM call and each engine's NTT
+    call): each kernel's launches x (device ms a launch - its bound a
+    launch at the 2^20 shapes), largest first: where kernel work gains the
+    most.  A kernel whose mean launch is shorter than that bound launches at
+    smaller shapes (the point ops' scans) and is left out; the BLS MSM calls
+    are not ranked (their bounds at 2^20 are phase A's only)."""
     rows = []
     for b in busy:
-        if "2^20" not in b["label"]:
+        if "2^20" not in b["label"] or b["label"].startswith("BLS"):
             continue
         for k, v in b["per_kernel"].items():
             if not v["recorded"]:
@@ -1270,9 +1401,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    from panda_tpu_torch.curves.config import BLS12_377, BN254
+    from panda_tpu_torch.curves.config import BLS12_377, BLS12_381, BN254
     from panda_tpu_torch.ops import _ext
     fr = BN254.fr
+    bls_curves = (BLS12_377, BLS12_381)
 
     # 1. environment
     card = nvidia_smi_line()
@@ -1294,15 +1426,23 @@ def main() -> int:
     usage = ptxas_usage()
     log("[build] ptxas -v, registers / stack / spill stores / spill loads "
         "(bytes) a thread: " + "; ".join(
-            f"{name} {entry[:40]} {regs} / {stack} / {st} / {ld}"
+            f"{name} {entry_name(entry)} {regs} / {stack} / {st} / {ld}"
             for name, rows in usage.items()
             for entry, regs, stack, st, ld in rows))
+    bn254_registers = bn254_register_check(usage)
 
-    # 3. kernels against their plain versions (BN254 timed, BLS12-377
-    #    checked); what the kernels do not cover raises on the card
+    # 3. kernels against their plain versions (BN254 and both BLS curves'
+    #    MSM kernels timed, BLS12-377's NTT kernels checked); what the
+    #    kernels do not cover raises on the card
     timer = DeviceTimes()
     res = kernel_checks(BN254, 1 << 16, device, timer)
     res20 = kernel_checks(BN254, 1 << 20, device, timer, plain_times=False)
+    bls_res = {}
+    for cv in bls_curves:
+        bls_res[cv.name] = kernel_checks(cv, 1 << 16, device, timer)
+        bls_res[f"{cv.name} 2^20"] = kernel_checks(
+            cv, 1 << 20, device, timer, plain_times=False,
+            through_phase_a=True)
     res.update(ntt_kernel_checks(fr, 20, device, timer))
     ntt_kernel_checks(BLS12_377.fr, 20, device, None)
     bls_raises(device)
@@ -1314,14 +1454,29 @@ def main() -> int:
         "bound ms: " + "; ".join(
             f"{k}{tag} {v['ms']:.4f} ({v['recorded']}), {v['batch_ms']:.4f}, "
             f"{v['bound_ms']:.4f}"
-            for tag, r in (("", res), (" 2^20", res20)) for k, v in r.items()
-            if "ms" in v))
+            for tag, r in (("", res), (" 2^20", res20),
+                           *((f" {t}", r) for t, r in bls_res.items()))
+            for k, v in r.items() if "ms" in v))
 
     # 4. the main paths, each counted on its own; a kernel's launches in
     #    the kernels line are its sum over the paths
     sizes = [slice_inputs(BN254, k, device) for k in (16, 20)]
     runs, counts = counted(MSM_KERNELS,
                            lambda: [slice_run(sl, card, 20) for sl in sizes])
+    bn254_counts = dict(counts)
+
+    # the BLS MSMs: through the curve's alias (bases bytes in every call)
+    # and msm_with_cached_bases, at 2^16 (10 timed calls, to keep the run's
+    # time) and 2^20 (20), each curve counted on its own
+    bls_sizes, bls_runs_msm, bls_counts_msm = {}, {}, {}
+    for cv in bls_curves:
+        ingest_check(cv, device)
+        bls_sizes[cv.name] = [slice_inputs(cv, k, device) for k in (16, 20)]
+        bls_runs_msm[cv.name], bls_counts_msm[cv.name] = counted(
+            MSM_KERNELS, lambda cv=cv: [
+                slice_run(sl, card, 10 if sl["log_n"] == 16 else 20, entry)
+                for sl in bls_sizes[cv.name]
+                for entry in ("alias", "cached")])
     cases = [ntt_case(fr, k, 20261016 + k) for k in (20, 22)]
     bls_case = ntt_case(BLS12_377.fr, 20, 377)
 
@@ -1364,13 +1519,15 @@ def main() -> int:
     probe_rows, probe_counts = counted(PROBE_KERNELS, probe)
     layout = probe_layout_line(sizes[1], probe_rows, res20["phase_a"]["ms"],
                                card)
-    for c in (ntt_counts, r2_counts, bls_counts, probe_counts):
+    for c in (ntt_counts, r2_counts, bls_counts, probe_counts,
+              *bls_counts_msm.values()):
         for k, v in c.items():
             counts[k] += v
 
     # 5. where the time goes, 6. device busy share (not counted)
     from panda_tpu_torch.runtime import api
     stages = [stage_breakdown(BN254, sl, 10) for sl in sizes]
+    stages.append(stage_breakdown(BLS12_381, bls_sizes["bls12_381"][1], 10))
     stages += [ntt_stage_breakdown(fr, cases[0], 10, impl) for impl in ENGINES]
     def ntt_call(cs, impl):
         def call():
@@ -1383,11 +1540,16 @@ def main() -> int:
           lambda sl=sl: api.msm_bn254_with_cached_bases(sl["gm"],
                                                         sl["scalars"], 0),
           sl["want"], r["median_ms"]) for sl, r in zip(sizes, runs)] +
+        [(f"BLS12-{cv.name[-3:]} MSM 2^20",
+          lambda sl=bls_sizes[cv.name][1]: api.msm_with_cached_bases(
+              sl["gm"], sl["scalars"], 0),
+          bls_sizes[cv.name][1]["want"], bls_runs_msm[cv.name][3]["median_ms"])
+         for cv in bls_curves] +
         [(f"NTT 2^{cs['log_n']} {ENGINES[impl]}", ntt_call(cs, impl),
           cs["auto"]["out"], run["forward"]["median_ms"])
          for cs, r4, r2 in zip(cases, ntt_runs, r2_runs)
          for impl, run in (("auto", r4), ("pallas", r2))])
-    for sl in sizes:
+    for sl in (*sizes, *(s for v in bls_sizes.values() for s in v)):
         sl["gm"].deinit()
     for cs in (*cases, bls_case):
         for impl in ENGINES:
@@ -1402,12 +1564,49 @@ def main() -> int:
                            2 * res["small_ntt_k64"]["bound_ms"]) / 3
     ranking = gap_ranking(busy, bounds)
 
+    # the curve-templated MSM kernels: each curve's device ms a launch,
+    # launches on its path, bound, plain ms and its instantiations' ptxas
+    # rows (phase A also at 2^20)
+    for k in ("digits", "phase_a", "point_ops", "wscan"):
+        by_curve = {}
+        for cv, r, n_launch in (
+                (BN254, res, bn254_counts),
+                *((cv, bls_res[cv.name], bls_counts_msm[cv.name])
+                  for cv in bls_curves)):
+            by_curve[cv.name] = {
+                "ms": r[k]["ms"], "launches": n_launch[k],
+                "max_abs_err": r[k]["max_abs_err"],
+                "bound_ms": r[k]["bound_ms"], "plain_ms": r[k]["plain_ms"],
+                "ptxas": instance_usage(usage, k, cv.name)}
+        for cv, r in ((BN254, res20),
+                      *((cv, bls_res[f"{cv.name} 2^20"]) for cv in bls_curves)):
+            if k in r:
+                by_curve[cv.name].update(ms_2_20=r[k]["ms"],
+                                         bound_ms_2_20=r[k]["bound_ms"])
+            if k == "phase_a":
+                by_curve[cv.name]["ms_2_20_table_in_l2"] = \
+                    r["phase_a_l2"]["ms"]
+        res[k] = dict(res[k], by_curve=by_curve)
+        log(f"[kernels by curve] {k}: " + "; ".join(
+            f"{c} {v['ms']:.4f} ms a launch (bound {v['bound_ms']:.4f}, "
+            f"plain {v['plain_ms']}), {v['launches']} launches, ptxas "
+            f"{[row[1:] for row in v['ptxas']]}"
+            + (f", 2^20 {v['ms_2_20']:.4f} ms (bound {v['bound_ms_2_20']:.4f})"
+               if "ms_2_20" in v else "")
+            + (f", 2^20 with the table in L2 {v['ms_2_20_table_in_l2']:.4f} ms"
+               if "ms_2_20_table_in_l2" in v else "")
+            for c, v in by_curve.items()))
+
     kernels = [{"name": k, "route": "cuda",
                 "source": f"panda_tpu_torch/csrc/{k}.cu",
                 "replaces": REPLACES[k], "launches": counts[k], **res[k]}
                for k in _ext.KERNELS]
     log(json.dumps({"slice": runs, "ntt": ntt_runs, "ntt_radix2": r2_runs,
-                    "bls12_377": bls_runs, "stages": stages, "busy": busy,
+                    "bls12_377": bls_runs, "bls_msm": bls_runs_msm,
+                    "bls_msm_counts": bls_counts_msm,
+                    "bls_kernels": bls_res,
+                    "bn254_registers_differ": bn254_registers,
+                    "stages": stages, "busy": busy,
                     "point_ops_variants": res["point_ops_variants"],
                     "small_ntt_k64": res["small_ntt_k64"],
                     "dft_k4": res["dft_k4"], "msm_2_20_shapes": res20,

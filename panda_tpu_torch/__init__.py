@@ -1,8 +1,9 @@
 """panda_tpu_torch: the PyTorch and CUDA port of panda_tpu for NVIDIA Hopper.
 
-Runs the BN254 MSM and NTT byte API (``runtime.api``) with hand-written
-CUDA kernels (``csrc/``) on a CUDA device, or with their plain PyTorch
-versions on CPU tensors.  It imports neither jax nor panda_tpu: the field
+Runs the MSM byte API (``runtime.api``) for BN254, BLS12-377 and BLS12-381
+and the NTT byte API for BN254 and BLS12-377 with hand-written CUDA kernels
+(``csrc/``) on a CUDA device, or with their plain PyTorch versions on CPU
+tensors (the BLS12-381 NTT runs there only).  It imports neither jax nor panda_tpu: the field
 and curve parameters, big-int oracles and error codes it needs are its own
 copies (``fields/config.py``, ``curves/config.py``, ``reference/``,
 ``runtime/errors.py``).  Exports resolve lazily, so importing the package

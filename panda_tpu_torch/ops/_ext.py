@@ -132,6 +132,14 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: tensor not contiguous")
 
 
+def check_words(name: str, spec, t: torch.Tensor) -> None:
+    """Raise unless ``t`` holds elements of field ``spec`` as rows of words:
+    shape (n_bytes / 4, ...), 8 for 32-byte elements and 12 for 48."""
+    if t.shape[0] != spec.n_bytes // 4:
+        raise ValueError(f"{name}: {spec.name} elements must be "
+                         f"({spec.n_bytes // 4}, ...) words")
+
+
 def on_cpu(name: str, t: torch.Tensor) -> bool:
     """True for a CPU tensor (take the plain version), False for a CUDA
     tensor (launch the kernel); any other device raises."""
@@ -145,9 +153,12 @@ def on_cpu(name: str, t: torch.Tensor) -> bool:
 # The fields the NTT kernels (fmul, dft, small_ntt) are built for, in the
 # order of their field ids (csrc/field.cuh: 0 is Fr254, 1 is Fr377).
 NTT_FIELDS = ("bn254_fr", "bls12_377_fr")
-# The MSM kernels are built for the BN254 curve and its scalar field.
-MSM_CURVES = ("bn254",)
-MSM_FIELDS = ("bn254_fr",)
+# The curves the MSM point kernels (phase_a, point_ops, wscan) are built for,
+# in the order of their curve ids (csrc/field.cuh: Bn254, Bls12_377,
+# Bls12_381), and the scalar fields of the digits kernel, in the order of its
+# field ids (Fr254, Fr377, Fr381).
+MSM_CURVES = ("bn254", "bls12_377", "bls12_381")
+MSM_FIELDS = ("bn254_fr", "bls12_377_fr", "bls12_381_fr")
 
 
 def kernel_field(name: str, spec, built_for) -> int:
@@ -157,6 +168,6 @@ def kernel_field(name: str, spec, built_for) -> int:
     if spec.name not in built_for:
         raise NotImplementedError(
             f"{name}: the CUDA kernel is built for {', '.join(built_for)}, "
-            f"not {spec.name}; the rest is the ROADMAP item \"BLS12-381 and "
-            "the BLS MSMs on the device\"")
+            f"not {spec.name}; what is left is in ROADMAP: the BLS12-381 "
+            "scalar-field NTT kernels, and the MSM above 2^20 points")
     return built_for.index(spec.name)

@@ -1,8 +1,9 @@
 """Scalar preparation for the MSM: from-Montgomery + signed-digit recode.
 
 Counterpart of ``panda_tpu/ops/digits_pallas.py``; the kernel is
-``csrc/digits.cu``.  Input: (8, n) int32 scalar words in the wire
-Montgomery form (R = 2^256, any value below 2^256).  Output: ``mags``
+``csrc/digits.cu``, built for the scalar fields of BN254, BLS12-377 and
+BLS12-381.  Input: (8, n) int32 scalar words in the wire Montgomery form
+(R = 2^256, any value below 2^256).  Output: ``mags``
 (W, n) int32 in [0, 2^(c-1)] and ``negs`` (W, n) bool, equal to
 ``panda_tpu.ops.msm.extract_signed_digits`` of the canonical scalars.
 """
@@ -47,15 +48,15 @@ def signed_digits(spec: FieldSpec, scalars: torch.Tensor, c: int, W: int):
         raise ValueError("window width must be in [1, 16]")
     if _ext.on_cpu("signed_digits", scalars):
         return signed_digits_plain(spec, scalars, c, W)
-    _ext.kernel_field("signed_digits", spec, _ext.MSM_FIELDS)
+    field = _ext.kernel_field("signed_digits", spec, _ext.MSM_FIELDS)
     scalars = scalars.contiguous()
     _ext.check_cuda("signed_digits", scalars)
-    if scalars.shape[0] != mont.n_words(spec):
-        raise ValueError("signed_digits: scalars must be (8, n) words")
+    _ext.check_words("signed_digits", spec, scalars)
     n = scalars.shape[1]
     mags = torch.empty((W, n), dtype=torch.int32, device=scalars.device)
     negs = torch.empty((W, n), dtype=torch.bool, device=scalars.device)
-    _ext.launch("digits", "ptt_signed_digits", [P, P, P, I64, I32, I32],
+    _ext.launch("digits", "ptt_signed_digits",
+                [P, P, P, I64, I32, I32, I32],
                 [scalars.data_ptr(), mags.data_ptr(), negs.data_ptr(), n, c,
-                 W], scalars.device)
+                 W, field], scalars.device)
     return mags, negs

@@ -42,19 +42,23 @@ MAX_N = 1 << 20
 
 # Phase A's geometry on the H100.  One launch runs W_g * m threads, each a
 # chain of S = n / m mixed adds that depend on each other, so the card is
-# filled by threads in flight: csrc/phase_a.cu caps a thread at 128
-# registers (launch bounds 128 x 4), which keeps 16 warps resident on each
-# of the 132 SMs, 67,584 threads in all.  Every launch gets the least lane
-# count with at least _PHASE_A_THREADS = 2^16 threads (the JAX package's
-# 2^14 was sized on a v5e to fill its limb kernels: 4 warps an SM here),
-# which still fits that one wave: 20 x 3277 (20 steps) at 2^16, 16 x 4096
-# (256 steps) at 2^20.
+# filled by threads in flight.  For BN254, csrc/phase_a.cu caps a thread at
+# 128 registers (launch bounds 128 x 4), which keeps 16 warps resident on
+# each of the 132 SMs, 67,584 threads in all.  Every launch gets the least
+# lane count with at least _PHASE_A_THREADS = 2^16 threads (the JAX
+# package's 2^14 was sized on a v5e to fill its limb kernels: 4 warps an SM
+# here), which still fits that one wave: 20 x 3277 (20 steps) at 2^16,
+# 16 x 4096 (256 steps) at 2^20.  The BLS curves' 12-word lanes take up to
+# 255 registers (launch bounds 128 x 2), 33,792 resident threads, so the
+# same 2^16 threads run in two waves.
 _PHASE_A_THREADS = 1 << 16
 
 # Upper bound on W_g * n entries staged by one phase-A launch: 2^24, so all
-# 16 windows of a 2^20 MSM run in one launch.  An entry costs ~108 bytes
-# (key and index 8, emission key and sum 100): ~1.8 GB of the card's 80 GB
-# (the JAX package's 2^22 was sized for 16 GB of HBM).
+# windows of a 2^20 MSM run in one launch.  An entry costs ~108 bytes with
+# 8-word coordinates (key and index 8, emission key and sum 4 + 96) and
+# ~156 with 12 (8, 4 + 144): ~1.8 GB for BN254 and ~2.6 GB for the BLS
+# curves at 2^24 entries, of the card's 80 GB (the JAX package's 2^22 was
+# sized for 16 GB of HBM).
 _PHASE_A_BUDGET = 1 << 24
 
 # Below this bucket count, per-target binary search replaces the histogram.
@@ -105,7 +109,8 @@ def window_bits(log_n: int, bits: int = 254) -> int:
 
 
 def signed_digit_arrays(fr: FieldSpec, scalars: torch.Tensor, c: int):
-    """(mags, negs) signed-digit recode of (8, n) Montgomery scalar words."""
+    """(mags, negs) signed-digit recode of (8, n) Montgomery scalar words
+    into signed_window_count(fr.bits, c) windows."""
     return digits_ops.signed_digits(fr, scalars, c,
                                     signed_window_count(fr.bits, c))
 
@@ -162,7 +167,7 @@ def sorted_streams(digits, signs, c: int, m: int) -> Streams:
 
 def assemble_buckets(curve: CurveSpec, st: Streams, ekeys, epts, tkeys,
                      tpts) -> ProjPoint:
-    """Dense bucket tables (8, W, D) from phase A's emissions and tails."""
+    """Dense bucket tables (L, W, D) from phase A's emissions and tails."""
     W, steps, m = st.keys.shape
     P, D, L = steps * m, st.D, epts.x.shape[0]
     dev = ekeys.device
@@ -197,7 +202,7 @@ def assemble_buckets(curve: CurveSpec, st: Streams, ekeys, epts, tkeys,
 
 def _bucket_tables(curve: CurveSpec, px, py, digits, signs, c: int,
                    m: int) -> ProjPoint:
-    """Dense bucket tables B_1..B_D of every window: (8, W, D) coordinates,
+    """Dense bucket tables B_1..B_D of every window: (L, W, D) coordinates,
     D = 2^(c-1); negative digits enter as the negated point."""
     st = sorted_streams(digits, signs, c, m)
     return assemble_buckets(
@@ -210,7 +215,7 @@ def _window_group_size(n: int, W: int) -> int:
 
 def window_sums(curve: CurveSpec, px, py, digits, signs,
                 c: int) -> ProjPoint:
-    """Per-window sums G_w as (8, W) coordinates.  Windows run in groups
+    """Per-window sums G_w as (L, W) coordinates.  Windows run in groups
     of at most _PHASE_A_BUDGET / n, which bounds the staged memory: one
     group up to 2^20 points."""
     W, n = digits.shape
@@ -234,7 +239,7 @@ def window_sums(curve: CurveSpec, px, py, digits, signs,
 
 
 def window_sums_fn(curve: CurveSpec, c: int):
-    """(px, py, scalars) -> window sums (8, W) x3: the device part of the
+    """(px, py, scalars) -> window sums (L, W) x3: the device part of the
     byte-API MSM; the Horner tail runs on the host."""
     def fn(px, py, scalars):
         mags, negs = signed_digit_arrays(curve.fr, scalars, c)

@@ -3,21 +3,24 @@
 Counterpart of ``panda_tpu/ops/phase_a_pallas.py``; the kernel is
 ``csrc/phase_a.cu`` (one thread per (window, lane), accumulator in
 registers, the base gather and the y negation in-kernel, the next step's
-loads issued before each mixed add).
+loads issued before each mixed add), built for the three curves of
+``_ext.MSM_CURVES``.
 
-Inputs (int32 tensors of uint32 words), with S steps of m lanes:
+Inputs (int32 tensors of uint32 words), with S steps of m lanes and
+L = ``mont.n_words(curve.fp)`` words a coordinate (8 for BN254, 12 for the
+BLS curves):
   keys, sidx   (W, S, m)  sorted digits; point index | sign << 31
-  px, py       (8, n)     affine bases (Montgomery, canonical)
+  px, py       (L, n)     affine bases (Montgomery, canonical)
 Outputs:
   ekeys        (W, S, m)  key of the run that ended before each step
                           (``dead`` where none did)
-  epts         ProjPoint of (8, W, S, m): that run's sum, defined only
+  epts         ProjPoint of (L, W, S, m): that run's sum, defined only
                           where ``ekeys != dead`` (the kernel stores a sum
                           only where a run ends and leaves the rest
                           unwritten; the plain version writes the identity
                           there)
   tkeys        (W, m)     each lane's final key
-  tpts         ProjPoint of (8, W, m): each lane's final run sum
+  tpts         ProjPoint of (L, W, m): each lane's final run sum
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ def scan_plain(curve: CurveSpec, keys, sidx, px, py, dead: int):
     ekeys, eps = [], []
     for s in range(S):
         k = keys[:, s]
-        qx, qy = px[:, idx[:, s]], py[:, idx[:, s]]          # (8, W, m)
+        qx, qy = px[:, idx[:, s]], py[:, idx[:, s]]          # (L, W, m)
         qy = torch.where(neg[:, s].unsqueeze(0), mont.neg(curve.fp, qy), qy)
         same = k == akey
         emit = ~same & (akey != INIT_KEY)
@@ -64,12 +67,13 @@ def scan(curve: CurveSpec, keys, sidx, px, py, dead: int):
     """Phase A over all (window, lane) pairs; see the module docstring."""
     if _ext.on_cpu("phase_a", keys):
         return scan_plain(curve, keys, sidx, px, py, dead)
-    _ext.kernel_field("phase_a", curve, _ext.MSM_CURVES)
+    cid = _ext.kernel_field("phase_a", curve, _ext.MSM_CURVES)
     keys, sidx, px, py = (a.contiguous() for a in (keys, sidx, px, py))
     _ext.check_cuda("phase_a", keys, sidx, px, py)
     W, S, m = keys.shape
     if sidx.shape != keys.shape or px.shape != py.shape:
         raise ValueError("phase_a: shape mismatch")
+    _ext.check_words("phase_a", curve.fp, px)
     L, n = px.shape
     dev = keys.device
     ekeys = torch.empty_like(keys)
@@ -79,9 +83,9 @@ def scan(curve: CurveSpec, keys, sidx, px, py, dead: int):
     tpts = [torch.empty((L, W, m), dtype=torch.int32, device=dev)
             for _ in range(3)]
     _ext.launch("phase_a", "ptt_phase_a",
-                [P] * 4 + [I64] + [P] * 8 + [I64] * 3 + [I32],
+                [P] * 4 + [I64] + [P] * 8 + [I64] * 3 + [I32, I32],
                 [keys.data_ptr(), sidx.data_ptr(), px.data_ptr(),
                  py.data_ptr(), n, ekeys.data_ptr(),
                  *(a.data_ptr() for a in epts), tkeys.data_ptr(),
-                 *(a.data_ptr() for a in tpts), W, m, S, dead], dev)
+                 *(a.data_ptr() for a in tpts), W, m, S, dead, cid], dev)
     return ekeys, ProjPoint(*epts), tkeys, ProjPoint(*tpts)

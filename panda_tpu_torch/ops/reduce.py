@@ -81,7 +81,7 @@ def lane_split(batch: int, d: int) -> tuple:
 
 def weighted_window_sum(curve: CurveSpec, buckets: ProjPoint) -> ProjPoint:
     """sum_{d>=1} d * B_d for buckets B_1..B_D along the last axis of
-    (8, *batch, D) coordinates; returns (8, *batch).
+    (L, *batch, D) coordinates; returns (L, *batch).
 
     Blocked decomposition d = q S + (r + 1), lane q, step r:
 
@@ -103,7 +103,7 @@ def weighted_window_sum(curve: CurveSpec, buckets: ProjPoint) -> ProjPoint:
         buckets = ProjPoint(*(torch.cat([a, b], dim=-1)
                               for a, b in zip(buckets, ident)))
     L = buckets.x.shape[0]
-    # (8, *lead, lanes*steps) -> (8, steps, batch*lanes): step-major columns
+    # (L, *lead, lanes*steps) -> (L, steps, batch*lanes): step-major columns
     cols = ProjPoint(*(a.reshape(L, batch, lanes, steps).permute(0, 3, 1, 2)
                        .reshape(L, steps, batch * lanes) for a in buckets))
     run, wsum = point_kernels.weighted_scan(curve, cols)

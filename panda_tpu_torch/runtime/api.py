@@ -1,14 +1,14 @@
 """Byte-level MSM and NTT API.
 
-Counterpart of ``panda_tpu/runtime/api.py`` (without ``msm_host`` and the
-BLS MSM aliases): the same entry points, the same wire contract (LE
+Counterpart of ``panda_tpu/runtime/api.py`` (without ``msm_host``): the
+same entry points and curve-suffixed aliases, the same wire contract (LE
 Montgomery bytes in; a 3-field result blob, or the transformed elements,
 out) and the same ``PandaError`` codes for malformed input.
 
-On the card the MSM runs for BN254 and the NTT for BN254 and BLS12-377;
-there the BLS12-381 NTT (its 4r > 2^256 breaks the kernels' [0, 2r)
-invariant) and every BLS MSM raise ``NotImplementedError``.  The BLS12-381
-NTT runs on CPU tensors.
+On the card the MSM runs for BN254, BLS12-377 and BLS12-381 (48-byte base
+coordinates for the BLS curves), and the NTT for BN254 and BLS12-377.  The
+BLS12-381 NTT (its 4r > 2^256 breaks the kernels' [0, 2r) invariant) raises
+``NotImplementedError`` there and runs on CPU tensors.
 """
 
 from __future__ import annotations
@@ -150,8 +150,14 @@ def ntt_bn254(gm, data, log_n):
 def ntt_bn254_v1(gm, data, log_n, omega_bytes):
     _curve_guard(gm, BN254); return ntt_v1(gm, data, log_n, omega_bytes)
 
+def msm_bls12_377(gm, scalars, bases):
+    _curve_guard(gm, BLS12_377); return msm(gm, scalars, bases)
+
 def ntt_bls12_377(gm, data, log_n):
     _curve_guard(gm, BLS12_377); return ntt(gm, data, log_n)
+
+def msm_bls12_381(gm, scalars, bases):
+    _curve_guard(gm, BLS12_381); return msm(gm, scalars, bases)
 
 def ntt_bls12_381(gm, data, log_n):
     _curve_guard(gm, BLS12_381); return ntt(gm, data, log_n)

@@ -3,9 +3,11 @@
 Counterpart of ``panda_tpu/runtime/manager.py``: a ``PandaManager`` holds
 the session's ``torch.device``, its cached MSM inputs and its NTT tables.
 Bases, scalars and NTT data arrive as wire bytes (LE Montgomery, R = 2^256
-for BN254), which are already the port's internal form: ingest reinterprets
-the bytes as (8, n) int32 words and, for bases, reduces each coordinate to
-[0, p).
+for BN254's fields and the scalar fields, 2^384 for the BLS base fields),
+which are already the port's internal form: ingest reinterprets the bytes as
+(L, n) int32 words (L = 8 for 32-byte elements, 12 for the BLS curves'
+48-byte coordinates) and, for bases, reduces each coordinate to [0, p) on
+the session's device (``mont.reduce_wire``).
 """
 
 from __future__ import annotations

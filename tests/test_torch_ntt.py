@@ -227,7 +227,8 @@ def test_session_root_and_init_units():
 def test_bls_ntt_plain_on_cpu_and_not_on_gpu(curve):
     """The BLS scalar fields run their plain versions on CPU tensors; on
     CUDA the NTT kernels take BLS12-377 Fr beside BN254 Fr and raise for
-    BLS12-381 Fr, and the MSM kernels take BN254 only."""
+    BLS12-381 Fr, and the MSM kernels take both BLS curves and scalar
+    fields beside BN254's, with ids 1 (BLS12-377) and 2 (BLS12-381)."""
     fr, log_n = curve.fr, 6
     rng = random.Random(7)
     vals = [rng.randrange(fr.modulus) for _ in range(1 << log_n)]
@@ -246,7 +247,6 @@ def test_bls_ntt_plain_on_cpu_and_not_on_gpu(curve):
         with pytest.raises(NotImplementedError):
             _ext.kernel_field("dft_apply_fused", fr, _ext.NTT_FIELDS)
     assert _ext.kernel_field("dft_apply_fused", FR, _ext.NTT_FIELDS) == 0
-    with pytest.raises(NotImplementedError):
-        _ext.kernel_field("signed_digits", fr, _ext.MSM_FIELDS)
-    with pytest.raises(NotImplementedError):
-        _ext.kernel_field("phase_a", curve, _ext.MSM_CURVES)
+    cid = {"bls12_377": 1, "bls12_381": 2}[curve.name]
+    assert _ext.kernel_field("signed_digits", fr, _ext.MSM_FIELDS) == cid
+    assert _ext.kernel_field("phase_a", curve, _ext.MSM_CURVES) == cid
