@@ -26,7 +26,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    the radix-2 pass small_ntt at K = 256, nb = 2^12 with its T1 table and
    at K = 64, nb = 2^14 (the radix-2 2^20 NTT's passes), forward and with
    the inverse's scale and the canonical store, on words that include
-   values >= 2r: equal words, for BN254 Fr and BLS12-377 Fr; the gather
+   values >= 2r (for BLS12-381 Fr, whose values stay below r, words >= r
+   only where the kernel reduces at load): equal words, for BN254 Fr,
+   BLS12-377 Fr and BLS12-381 Fr, each timed; the gather
    probe's dg3 at its four depths R = 8, 32, 256 and 1024 (G = 2^22 /
    (128 R)): equal words (the kernels line gives R = 8's times).  Each
    kernel's device time a launch (the median of torch.profiler's CUDA
@@ -35,8 +37,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    TB/s or operations over the peak rate, the larger) and, where one
    PyTorch call computes the same function, that call's time
    (torch._int_mm beside the DFT as a yardstick of the int8 tensor cores,
-   torch.gather beside dg3).  The BLS12-381 NTT on the card raises
-   NotImplementedError;
+   torch.gather beside dg3).  Every curve and scalar field has a kernel id
+   (MSM curve, digits field, NTT field);
 4. the main paths, each with every launch counter set to 0 just before it
    and read after it (each of its kernels must have launched): the MSM
    slice, api.msm_bn254_with_cached_bases at n = 2^16 and 2^20 with cached
@@ -45,7 +47,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    after a check that the bases ingest on the card equals the CPU's for
    48-byte coordinates: api.msm_bls12_377 / api.msm_bls12_381 (bases
    bytes in every call) and api.msm_with_cached_bases at 2^16 and 2^20,
-   10 and 20 timed calls each, every blob equal to the oracle's; the NTT
+   5 timed calls at 2^16, 10 (alias) and 20 (cached) at 2^20, every blob
+   equal to the oracle's; the NTT
    byte API with the four-step engine
    (PANDA_NTT_IMPL=auto): api.ntt_bn254, api.intt and api.ntt_bn254_v1 (a
    non-default root) at 2^20 and 2^22, held to a bit-exact INTT roundtrip
@@ -55,7 +58,15 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    bytes must equal the four-step engine's, and whose steady 2^20 call
    must launch small_ntt and no dft; the BLS12-377 NTT with both engines,
    at 2^12 against the oracle and at 2^20 (roundtrip, spot checks, 10
-   timed calls); the gather probe (tools/profile_gather4.py's port,
+   timed calls); the BLS12-381 NTT likewise, each engine counted on its
+   own (the four-step path must launch fmul and dft, the radix-2 path
+   small_ntt and no dft); the stagewise engine (PANDA_NTT_IMPL=jnp), each
+   field counted on its own (fmul must launch, dft and small_ntt must
+   not): its 2^12 bytes equal ntt_ref's for the three fields, BN254 at
+   2^20 (roundtrip, spot checks, 3 timed calls), and run_ntt at 2^8 with
+   auto, which runs the stagewise engine there, byte-equal to the
+   four-step plan (impl mxu, run before the count), each timed; the
+   gather probe (tools/profile_gather4.py's port,
    panda_tpu_torch.tools.profile_gather4.main) at its full sizes, whose
    dg3 cases must launch dg3, and then one measurement beside it: 2^24
    lookups of a base point in phase A's own layout (index_select from the
@@ -69,8 +80,9 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    kernel's launches and device ms in that call, from torch.profiler.
 
 The second-to-last line is a JSON object with one entry per kernel (the
-four curve-templated MSM kernels with a record for each curve); the last
-line is {"ok": true, "device": {...}}.  Inputs come from fixed seeds.
+four curve-templated MSM kernels with a record for each curve, the three
+NTT kernels with one for each scalar field); the last line is
+{"ok": true, "device": {...}}.  Inputs come from fixed seeds.
 """
 
 from __future__ import annotations
@@ -219,7 +231,13 @@ class DeviceTimes:
     (CUPTI), so the host's pace does not enter.  ``add`` queues a batch of
     ``reps`` calls of a kernel's wrapper and the dict whose "ms" it fills;
     ``take`` runs every queued batch (each after one warm-up call) in one
-    profiler session and fills in the median device ms a launch."""
+    profiler session and fills in the median device ms a launch.  On the
+    H100 a session at times records no launch of a whole batch (its first,
+    or one in the middle of a long session), so a batch left without
+    records runs again in a new session, up to ``RETRIES`` times, and the
+    retries are logged; phase 3 takes a group of kernels a session."""
+
+    RETRIES = 2
 
     def __init__(self):
         self.jobs = []
@@ -234,18 +252,34 @@ class DeviceTimes:
                     fn()
             return run
 
-        jobs = []
-        for i, (fn, reps, names, out) in enumerate(self.jobs):
-            jobs += [(f"chip_smoke warm-up {i}", fn),
-                     (f"chip_smoke batch {i}", batch(fn, reps))]
-        _, events, ranges = profile_ranges(jobs)
-        for i, (fn, reps, names, out) in enumerate(self.jobs):
-            us = kernel_records(events, names, ranges[f"chip_smoke batch {i}"])
-            if not us:
-                raise AssertionError(f"the profiler recorded no launch of "
-                                     f"{names} in batch {i}")
-            out["ms"] = statistics.median(us) / 1e3
-            out["recorded"] = f"{len(us)} of {reps}"
+        pending = list(enumerate(self.jobs))
+        for attempt in range(self.RETRIES + 1):
+            jobs = []
+            for i, (fn, reps, names, out) in pending:
+                jobs += [(f"chip_smoke warm-up {i}", fn),
+                         (f"chip_smoke batch {i}", batch(fn, reps))]
+            _, events, ranges = profile_ranges(jobs)
+            lost = []
+            for i, (fn, reps, names, out) in pending:
+                us = kernel_records(events, names,
+                                    ranges[f"chip_smoke batch {i}"])
+                if not us:
+                    lost.append((i, (fn, reps, names, out)))
+                    continue
+                out["ms"] = statistics.median(us) / 1e3
+                out["recorded"] = f"{len(us)} of {reps}"
+                if attempt:
+                    out["recorded"] += f" (session {attempt + 1})"
+            if lost:
+                log(f"[profiler] session {attempt + 1} recorded no launch in "
+                    f"batches {[i for i, _ in lost]} of {len(self.jobs)}")
+            pending = lost
+            if not pending:
+                break
+        if pending:
+            raise AssertionError(f"the profiler recorded no launch of "
+                                 f"{[j[2] for _, j in pending]} in "
+                                 f"{self.RETRIES + 1} sessions")
         self.jobs = []
 
 
@@ -316,7 +350,8 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
                   through_phase_a: bool = False) -> dict:
     """Phase 3: each MSM kernel of ``curve`` against its plain version at
     the main-path shapes for n points (with ``through_phase_a``, digits,
-    hist and phase A only).  Returns {kernel: {max_abs_err, batch_ms (CUDA
+    hist and phase A only, and the point ops' and wscan's bounds at these
+    shapes without a launch).  Returns {kernel: {max_abs_err, batch_ms (CUDA
     events around a batch), plain_ms (None unless ``plain_times``),
     bound_ms, bound_by, library_ms}}; ``timer`` fills in "ms", the device
     ms a launch, when it takes its batches.  Bounds count L = 8 or 12 words
@@ -426,7 +461,19 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
                              "batch_ms": cuda_ms(scan_l2, 5),
                              "table_bytes": 2 * fe * (cut + 1)}
         timer.add(scan_l2, 5, KERNEL_NAMES["phase_a"], res["phase_a_l2"])
+    # bounds of the point ops (padd on the bucket tables, (L, W, D): 6 + 3
+    # coordinates of fe bytes and 12 multiplies an element) and of wscan
+    # (S steps x N columns, as weighted_window_sum splits the tables)
+    N = W * D
+    lanes, steps = reduce.lane_split(W, D)
+    padd_bound = bound(9 * fe * N, imad(12 * N), IMAD_PER_S)
+    wscan_bound = bound(3 * fe * steps * W * lanes + 6 * fe * W * lanes,
+                        imad(24 * steps * W * lanes), IMAD_PER_S)
     if through_phase_a:
+        res["point_ops"], res["wscan"] = dict(padd_bound), dict(wscan_bound)
+        log(f"{tag} bounds only (no launch at this size): padd on {N} "
+            f"elements {padd_bound}, wscan {steps} steps x {W * lanes} "
+            f"columns {wscan_bound}")
         return res
 
     # 4. point ops on the bucket tables' shape (L, W, D): the interior +
@@ -435,8 +482,8 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
     idx = torch.arange(W * D, device=device).reshape(W, D) % px.shape[1]
     qa = AffinePoint(px[:, idx], py[:, idx])
     # bounds: (elements in + out) x fe bytes and the multiplies per element:
-    # padd 6 + 3 words, 12M; pmadd 5 + 3, 11M; pdbl 3 + 3, 8M (6M + 2S)
-    N = W * D
+    # padd 6 + 3 words, 12M (padd_bound); pmadd 5 + 3, 11M; pdbl 3 + 3, 8M
+    # (6M + 2S)
     errs, oks, kms, pms, bnds = [], [], [], [], []
     for kf, pf, args, fes, muls, kname in (
             (point_kernels.padd, cp.add_plain, (kb, q), 9, 12, "padd_kernel"),
@@ -457,23 +504,19 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
     record("point_ops", max(errs), kms[0], pms[0], all(oks), bnds[0])
 
     # 5. weighted scan on the bucket tables, split as weighted_window_sum does
-    batch = W
-    lanes, steps = reduce.lane_split(batch, D)
-    cols = ProjPoint(*(a.reshape(L, batch, lanes, steps).permute(0, 3, 1, 2)
-                       .reshape(L, steps, batch * lanes).contiguous()
+    cols = ProjPoint(*(a.reshape(L, W, lanes, steps).permute(0, 3, 1, 2)
+                       .reshape(L, steps, W * lanes).contiguous()
                        for a in kb))
     kr, kw = point_kernels.weighted_scan(curve, cols)
     pr, pw = point_kernels.weighted_scan_plain(curve, cols)
     ok = bool(cp.eq(curve, kr, pr).all()) and bool(cp.eq(curve, kw, pw).all())
     err = max(word_err(a, b) for a, b in zip((*kr, *kw), (*pr, *pw)))
-    S, N = cols.x.shape[1:]
-    log(f"{tag} wscan: {S} steps x {N} columns")
+    log(f"{tag} wscan: {steps} steps x {W * lanes} columns")
     record("wscan", err,
            timed(lambda: point_kernels.weighted_scan(curve, cols), 10,
                  KERNEL_NAMES["wscan"]),
            plain_ms(lambda: point_kernels.weighted_scan_plain(curve, cols), 1),
-           ok, bound(3 * fe * S * N + 6 * fe * N, imad(24 * S * N),
-                     IMAD_PER_S))
+           ok, wscan_bound)
     return res
 
 
@@ -514,10 +557,14 @@ def ntt_kernel_checks(fr, log_n: int, device,
     torch._int_mm yardstick (the same M x K x N in signed int8, no
     reduction) is logged beside the DFT."""
     import torch
+    from panda_tpu_torch.fields import mont
     from panda_tpu_torch.ops import fmul, ntt_fused, ntt_pallas
     res = {}
     n, r = 1 << log_n, fr.modulus
-    below_r, below_2r = r >> 224, (2 * r) >> 224
+    # the stored values' bound: 2r, or r for BLS12-381 Fr (mont.canon),
+    # whose fmul takes a < r and whose passes keep values below r
+    below_r = r >> 224
+    stored = below_r if mont.canon(fr) else (2 * r) >> 224
     tag = f"[kernels {fr.name}]"
 
     def check(name, pairs):
@@ -538,7 +585,7 @@ def ntt_kernel_checks(fr, log_n: int, device,
         timer.add(kernel, 20, KERNEL_NAMES[kname or name], res[name])
         log(f"{tag} {name}: {res[name]}")
 
-    a = random_words(n, 31, below_2r).to(device)              # < 2r
+    a = random_words(n, 31, stored).to(device)                # < 2r (r)
     b = random_words(n, 32, below_r).to(device)               # < r
     err = check("fmul", [(fmul.fmul(fr, a, b, c), fmul.fmul_plain(fr, a, b, c))
                          for c in (False, True)])
@@ -594,7 +641,7 @@ def ntt_kernel_checks(fr, log_n: int, device,
                                            device)
         pre = random_words(K * nb, 34, below_r).reshape(8, K, nb).to(device) \
             if with_pre else None
-        lazy = random_words(K * nb, 35, below_2r).reshape(8, K, nb).to(device)
+        lazy = random_words(K * nb, 35, stored).reshape(8, K, nb).to(device)
         wide = random_words(K * nb, 36).reshape(8, K, nb).to(device)
         # (input, pre table, scale, reduce_in, canonical_out): the main
         # path's configuration first, the top pass (lazy input, table,
@@ -704,21 +751,20 @@ def probe_layout_line(sl: dict, probe: list, phase_a_ms: float,
     return out
 
 
-def bls_raises(device) -> None:
-    """What the kernels do not cover raises NotImplementedError on the card
-    (no plain version runs for a CUDA tensor): the BLS12-381 NTT.  (Until
-    the BLS MSM kernels existed, a BLS12-377 MSM was checked here too; it
-    is now the BLS MSM path of phase 4.)"""
-    from panda_tpu_torch import InitUnitType, PandaManager
-    from panda_tpu_torch.runtime import api
-    try:
-        api.ntt_bls12_381(PandaManager.init_all(
-            0, InitUnitType.NTT, curve="bls12_381", device=device),
-            bytes(32 * 32), 5)
-    except NotImplementedError as e:
-        log(f"[kernels] BLS12-381 NTT on the card raises: {e}")
-        return
-    raise AssertionError("BLS12-381 NTT ran on the card")
+def kernel_ids() -> dict:
+    """Every curve of the package (the JAX package's three, in the port's
+    own copy) has a kernel id for each kernel family: its MSM curve id,
+    its scalar field's digits id and NTT id; none raises
+    NotImplementedError.  (Until the NTT kernels took BLS12-381 Fr, this
+    phase checked that its NTT raised on the card.)"""
+    from panda_tpu_torch.curves.config import CURVES
+    from panda_tpu_torch.ops import _ext
+    ids = {name: (_ext.kernel_field("phase_a", c, _ext.MSM_CURVES),
+                  _ext.kernel_field("signed_digits", c.fr, _ext.MSM_FIELDS),
+                  _ext.kernel_field("fmul", c.fr, _ext.NTT_FIELDS))
+           for name, c in CURVES.items()}
+    log(f"[kernels] ids (MSM curve, digits field, NTT field) a curve: {ids}")
+    return ids
 
 
 def ingest_check(curve, device) -> None:
@@ -1048,6 +1094,7 @@ def ntt_timed(label: str, call, want: bytes, reps: int, n: int,
 
 
 ENGINES = {"auto": "four-step", "pallas": "radix-2"}
+ENGINE_NAMES = {**ENGINES, "mxu": "four-step", "jnp": "stagewise"}
 
 
 @contextlib.contextmanager
@@ -1067,29 +1114,43 @@ def ntt_engine(impl: str):
 
 def forward_alias(curve):
     from panda_tpu_torch.runtime import api
-    return {"bn254": api.ntt_bn254, "bls12_377": api.ntt_bls12_377}[
-        curve.name]
+    return {"bn254": api.ntt_bn254, "bls12_377": api.ntt_bls12_377,
+            "bls12_381": api.ntt_bls12_381}[curve.name]
+
+
+_GATE_CASES: dict = {}
+
+
+def gate_case(curve) -> tuple:
+    """The 2^12 gate's input bytes (random words below 2^256, some >= r)
+    and ntt_ref's forward and inverse bytes, computed once a curve (the
+    O(n^2) oracle takes seconds)."""
+    from panda_tpu_torch.reference import ntt_ref
+    if curve.name not in _GATE_CASES:
+        fr = curve.fr
+        log_n, p = 12, fr.modulus
+        g = random.Random(12)
+        words = [g.randrange(1 << 256) for _ in range(1 << log_n)]
+        words[:3] = [p, p + 5, (1 << 256) - 1]
+        data = b"".join(v.to_bytes(32, "little") for v in words)
+        vals = [fr.from_wire_int(v) for v in words]
+        w = fr.root_of_unity(log_n)
+        wire = lambda vs: b"".join(fr.to_wire_int(v).to_bytes(32, "little")
+                                   for v in vs)            # noqa: E731
+        _GATE_CASES[curve.name] = (data, (
+            wire(ntt_ref.ntt_oracle(fr, vals, w)),
+            wire(ntt_ref.intt_oracle(fr, vals, w))))
+    return _GATE_CASES[curve.name]
 
 
 def ntt_small_gate(curve, device, impls) -> None:
-    """2^12, with each engine of ``impls``: forward and inverse bytes equal the big-int
-    NTT oracle's, for inputs that include words >= r (any value below
-    2^256 is taken)."""
+    """2^12, with each engine of ``impls``: forward and inverse bytes equal
+    the big-int NTT oracle's, for inputs that include words >= r (any value
+    below 2^256 is taken)."""
     from panda_tpu_torch import InitUnitType, PandaManager
-    from panda_tpu_torch.reference import ntt_ref
     from panda_tpu_torch.runtime import api
-    fr = curve.fr
-    log_n, p = 12, fr.modulus
-    g = random.Random(12)
-    words = [g.randrange(1 << 256) for _ in range(1 << log_n)]
-    words[:3] = [p, p + 5, (1 << 256) - 1]
-    data = b"".join(v.to_bytes(32, "little") for v in words)
-    vals = [fr.from_wire_int(v) for v in words]
-    w = fr.root_of_unity(log_n)
-    wire = lambda vs: b"".join(fr.to_wire_int(v).to_bytes(32, "little")
-                               for v in vs)                # noqa: E731
-    want = (wire(ntt_ref.ntt_oracle(fr, vals, w)),
-            wire(ntt_ref.intt_oracle(fr, vals, w)))
+    log_n = 12
+    data, want = gate_case(curve)
     for impl in impls:
         with ntt_engine(impl):
             gm = PandaManager.init_all(0, InitUnitType.NTT, curve=curve,
@@ -1097,10 +1158,10 @@ def ntt_small_gate(curve, device, impls) -> None:
             got = (forward_alias(curve)(gm, data, log_n),
                    api.intt(gm, data, log_n))
         if got != want:
-            raise AssertionError(f"{curve.name} NTT 2^12 ({ENGINES[impl]}) "
-                                 "!= ntt_ref")
+            raise AssertionError(f"{curve.name} NTT 2^12 "
+                                 f"({ENGINE_NAMES[impl]}) != ntt_ref")
     log(f"[ntt {curve.name} 2^12] forward and inverse bytes equal ntt_ref "
-        f"({', '.join(ENGINES[i] for i in impls)})")
+        f"({', '.join(ENGINE_NAMES[i] for i in impls)})")
 
 
 def ntt_slice(curve, case: dict, card: str, reps: int, device,
@@ -1118,7 +1179,7 @@ def ntt_slice(curve, case: dict, card: str, reps: int, device,
     fr = curve.fr
     log_n, n, data = case["log_n"], case["n"], case["data"]
     p = fr.modulus
-    tag = f"[ntt {curve.name} {ENGINES[impl]} 2^{log_n}]"
+    tag = f"[ntt {curve.name} {ENGINE_NAMES[impl]} 2^{log_n}]"
     fwd = forward_alias(curve)
     w3 = pow(fr.root_of_unity(log_n), 3, p)
     g = random.Random(log_n)
@@ -1147,14 +1208,13 @@ def ntt_slice(curve, case: dict, card: str, reps: int, device,
             held = "forward and v1 bytes equal the four-step engine's"
         log(f"{tag} roundtrip exact, {held}; first call {first:.3f} s, first "
             f"inverse {first_inv:.3f} s (tables built)")
-        res = {"curve": curve.name, "engine": ENGINES[impl], "log_n": log_n,
+        name = ENGINE_NAMES[impl]
+        res = {"curve": curve.name, "engine": name, "log_n": log_n,
                "first_s": first, "first_inverse_s": first_inv,
-               "forward": ntt_timed(f"{curve.name} {ENGINES[impl]} forward "
-                                    f"2^{log_n}",
+               "forward": ntt_timed(f"{curve.name} {name} forward 2^{log_n}",
                                     lambda: fwd(gm, data, log_n), out, reps,
                                     n, card),
-               "inverse": ntt_timed(f"{curve.name} {ENGINES[impl]} inverse "
-                                    f"2^{log_n}",
+               "inverse": ntt_timed(f"{curve.name} {name} inverse 2^{log_n}",
                                     lambda: api.intt(gm, out, log_n), data,
                                     reps, n, card)}
         x = mont.bytes_to_tensor(fr, data, device)
@@ -1193,6 +1253,47 @@ def radix2_launches(case: dict) -> dict:
                              f"{delta}")
     log(f"[ntt radix-2 2^{case['log_n']}] one steady call launches {delta}")
     return delta
+
+
+def engines_2_8(fr, device) -> dict:
+    """run_ntt at 2^8 on any words below 2^256 with the four-step plan
+    (impl mxu): its output and its device ms a call (CUDA events, 20
+    calls), before the stagewise path is counted; that path then holds
+    auto, the stagewise engine below 2^10, to these bytes."""
+    from panda_tpu_torch.ops import ntt as ntt_ops
+    x = random_words(1 << 8, 8).to(device)
+    tables = ntt_ops.make_tables(fr, 8)
+    run = lambda: ntt_ops.run_ntt(fr, x, tables, impl="mxu")  # noqa: E731
+    return {"x": x, "tables": tables, "mxu": run(),
+            "mxu_ms": cuda_ms(run, 20)}
+
+
+def stagewise_path(curve, device, card, small: dict,
+                   case: dict | None = None) -> dict:
+    """Phase 4 for the stagewise engine (PANDA_NTT_IMPL=jnp) over one
+    field: the byte API at 2^12 against ntt_ref; run_ntt at 2^8 with auto
+    (the stagewise engine there) byte-equal to ``small``'s four-step
+    output, with the device ms a call of both; and, given ``case`` (BN254
+    at 2^20), the roundtrip, spot checks and 3 timed calls of
+    ntt_slice."""
+    import torch
+    from panda_tpu_torch.ops import ntt as ntt_ops
+    fr = curve.fr
+    ntt_small_gate(curve, device, ("jnp",))
+    x, tables = small["x"], small["tables"]
+    run = lambda: ntt_ops.run_ntt(fr, x, tables, impl="auto")  # noqa: E731
+    if not torch.equal(run(), small["mxu"]):
+        raise AssertionError(f"{curve.name} NTT 2^8: auto (stagewise) bytes "
+                             "differ from the four-step plan's")
+    res = {"curve": curve.name, "auto_2_8_ms": cuda_ms(run, 20),
+           "mxu_2_8_ms": small["mxu_ms"]}
+    log(f"[ntt {curve.name} 2^8] auto (stagewise) bytes equal the four-step "
+        f"plan's; run_ntt {res['auto_2_8_ms']:.4f} ms a call against "
+        f"{res['mxu_2_8_ms']:.4f} (four-step), CUDA events, 20 calls, on "
+        f"{card}")
+    if case is not None:
+        res["2^20"] = ntt_slice(curve, case, card, 3, device, "jnp")
+    return res
 
 
 def ntt_stage_breakdown(fr, case: dict, reps: int, impl: str = "auto") -> dict:
@@ -1301,6 +1402,7 @@ MSM_KERNELS = ("digits", "hist", "phase_a", "point_ops", "wscan")
 NTT_KERNELS = ("fmul", "dft")
 RADIX2_KERNELS = ("small_ntt",)
 BLS_KERNELS = ("fmul", "dft", "small_ntt")
+STAGEWISE_KERNELS = ("fmul",)
 PROBE_KERNELS = ("dg3",)
 
 
@@ -1311,6 +1413,11 @@ BN254_REGISTERS = {"digits_kernel": 32, "hist_kernel": 16,
                        "phase_a_kernel": 128, "padd_kernel": 96,
                        "pmadd_kernel": 96, "pdbl_kernel": 64,
                        "wscan_kernel": 128}
+# The same for the NTT kernels' BN254 Fr and BLS12-377 Fr instantiations
+# from before they took BLS12-381 Fr.
+NTT_REGISTERS = {"fmul_kernel": {"Fr254": 31, "Fr377": 32},
+                 "dft_kernel": {"Fr254": 124, "Fr377": 124},
+                 "small_ntt_kernel": {"Fr254": 63, "Fr377": 63}}
 # The struct a template instantiation names in its mangled entry, by curve.
 INSTANCE = {"bn254": ("Bn254", "Fr254"), "bls12_377": ("Bls12_377", "Fr377"),
             "bls12_381": ("Bls12_381", "Fr381")}
@@ -1344,22 +1451,32 @@ def bn254_register_check(usage: dict) -> list:
             name = entry_name(e).split("<")[0]
             if regs != BN254_REGISTERS[name] or stack or st or ld:
                 differ.append((entry_name(e), regs, stack, st, ld))
+    for lib in ("fmul", "dft", "small_ntt"):
+        for e, regs, stack, st, ld in usage[lib]:
+            name, _, tag = entry_name(e).rstrip(">").partition("<")
+            want = NTT_REGISTERS[name].get(tag)
+            if want is not None and (regs != want or stack or st or ld):
+                differ.append((entry_name(e), regs, stack, st, ld))
     log("[build] BN254 instantiations against their registers before the "
-        f"curve templates {BN254_REGISTERS}: " + ("all equal, no stack, no spills"
-                                       if not differ else f"differ: {differ}"))
+        f"curve templates {BN254_REGISTERS}, and the BN254 Fr and BLS12-377 "
+        f"Fr NTT instantiations against theirs before BLS12-381 Fr "
+        f"{NTT_REGISTERS}: "
+        + ("all equal, no stack, no spills" if not differ
+           else f"differ: {differ}"))
     return differ
 
 
-def gap_ranking(busy: list, bounds: dict) -> list:
-    """Per call at 2^20 (the profiled BN254 MSM call and each engine's NTT
-    call): each kernel's launches x (device ms a launch - its bound a
-    launch at the 2^20 shapes), largest first: where kernel work gains the
-    most.  A kernel whose mean launch is shorter than that bound launches at
-    smaller shapes (the point ops' scans) and is left out; the BLS MSM calls
-    are not ranked (their bounds at 2^20 are phase A's only)."""
+def gap_ranking(busy: list, call_bounds: dict) -> list:
+    """Per call at 2^20 (the profiled MSM call of each curve and each
+    engine's BN254 NTT call; ``call_bounds`` maps its label to each
+    kernel's bound a launch at its 2^20 shapes): each kernel's launches x
+    (device ms a launch - its bound), largest first: where kernel work
+    gains the most.  A kernel whose mean launch is shorter than that bound
+    launches at smaller shapes (the point ops' scans) and is left out."""
     rows = []
     for b in busy:
-        if "2^20" not in b["label"] or b["label"].startswith("BLS"):
+        bounds = call_bounds.get(b["label"])
+        if bounds is None:
             continue
         for k, v in b["per_kernel"].items():
             if not v["recorded"]:
@@ -1380,10 +1497,10 @@ def gap_ranking(busy: list, bounds: dict) -> list:
     return rows
 
 
-def counted(kernels, run):
+def counted(kernels, run, absent=()):
     """Run one main path with every launch counter set to 0 just before it;
-    fail unless each of ``kernels`` launched.  Returns (run's result,
-    counts of every kernel)."""
+    fail unless each of ``kernels`` launched and none of ``absent`` did.
+    Returns (run's result, counts of every kernel)."""
     from panda_tpu_torch.ops import _ext
     _ext.reset_counts()
     out = run()
@@ -1392,6 +1509,9 @@ def counted(kernels, run):
     dead = [k for k in kernels if counts[k] == 0]
     if dead:
         raise AssertionError(f"kernels never launched on the main path: {dead}")
+    stray = [k for k in absent if counts[k]]
+    if stray:
+        raise AssertionError(f"kernels launched off the main path: {stray}")
     return out, counts
 
 
@@ -1420,6 +1540,14 @@ def main() -> int:
         f"load average {os.getloadavg()}")
     log(card)
     device = torch.device("cuda", 0)
+    phase_s, last = {}, [time.perf_counter()]
+
+    def mark(name):
+        """Log the seconds since the last mark as ``name``'s."""
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        log(f"[time] {name}: {phase_s[name]:.1f} s")
+        last[0] = now
 
     # 2. build
     log(f"[build] {len(_ext.KERNELS)} kernels in {_ext.build_all():.1f} s")
@@ -1430,22 +1558,26 @@ def main() -> int:
             for name, rows in usage.items()
             for entry, regs, stack, st, ld in rows))
     bn254_registers = bn254_register_check(usage)
+    mark("build and ptxas")
 
-    # 3. kernels against their plain versions (BN254 and both BLS curves'
-    #    MSM kernels timed, BLS12-377's NTT kernels checked); what the
-    #    kernels do not cover raises on the card
+    # 3. kernels against their plain versions (the MSM kernels of BN254 and
+    #    both BLS curves, the NTT kernels of the three scalar fields, all
+    #    timed); every curve and field has a kernel id
     timer = DeviceTimes()
     res = kernel_checks(BN254, 1 << 16, device, timer)
     res20 = kernel_checks(BN254, 1 << 20, device, timer, plain_times=False)
+    timer.take()               # one profiler session a group (DeviceTimes)
     bls_res = {}
     for cv in bls_curves:
         bls_res[cv.name] = kernel_checks(cv, 1 << 16, device, timer)
         bls_res[f"{cv.name} 2^20"] = kernel_checks(
             cv, 1 << 20, device, timer, plain_times=False,
             through_phase_a=True)
+    timer.take()
     res.update(ntt_kernel_checks(fr, 20, device, timer))
-    ntt_kernel_checks(BLS12_377.fr, 20, device, None)
-    bls_raises(device)
+    ntt_res = {cv.name: ntt_kernel_checks(cv.fr, 20, device, timer)
+               for cv in bls_curves}
+    ids = kernel_ids()
     dg3_by_r = gather_checks(device, timer)
     timer.take()
     res["dg3"] = dict(dg3_by_r[8], max_abs_err=max(
@@ -1455,8 +1587,11 @@ def main() -> int:
             f"{k}{tag} {v['ms']:.4f} ({v['recorded']}), {v['batch_ms']:.4f}, "
             f"{v['bound_ms']:.4f}"
             for tag, r in (("", res), (" 2^20", res20),
-                           *((f" {t}", r) for t, r in bls_res.items()))
+                           *((f" {t}", r) for t, r in bls_res.items()),
+                           *((f" {t} Fr", r) for t, r in ntt_res.items()))
             for k, v in r.items() if "ms" in v))
+
+    mark("kernel checks")
 
     # 4. the main paths, each counted on its own; a kernel's launches in
     #    the kernels line are its sum over the paths
@@ -1465,20 +1600,26 @@ def main() -> int:
                            lambda: [slice_run(sl, card, 20) for sl in sizes])
     bn254_counts = dict(counts)
 
+    mark("BN254 MSM path")
+
     # the BLS MSMs: through the curve's alias (bases bytes in every call)
-    # and msm_with_cached_bases, at 2^16 (10 timed calls, to keep the run's
-    # time) and 2^20 (20), each curve counted on its own
+    # and msm_with_cached_bases, at 2^16 (5 timed calls, to keep the run's
+    # time) and 2^20 (10 through the alias, 20 cached), each curve counted
+    # on its own
     bls_sizes, bls_runs_msm, bls_counts_msm = {}, {}, {}
     for cv in bls_curves:
         ingest_check(cv, device)
         bls_sizes[cv.name] = [slice_inputs(cv, k, device) for k in (16, 20)]
         bls_runs_msm[cv.name], bls_counts_msm[cv.name] = counted(
             MSM_KERNELS, lambda cv=cv: [
-                slice_run(sl, card, 10 if sl["log_n"] == 16 else 20, entry)
+                slice_run(sl, card, 5 if sl["log_n"] == 16 else
+                          10 if entry == "alias" else 20, entry)
                 for sl in bls_sizes[cv.name]
                 for entry in ("alias", "cached")])
     cases = [ntt_case(fr, k, 20261016 + k) for k in (20, 22)]
     bls_case = ntt_case(BLS12_377.fr, 20, 377)
+    bls381_case = ntt_case(BLS12_381.fr, 20, 381)
+    sw_case = ntt_case(fr, 20, 20261017)
 
     def four_step():
         ntt_small_gate(BN254, device, ("auto",))
@@ -1498,9 +1639,36 @@ def main() -> int:
         return [auto, ntt_slice(BLS12_377, bls_case, card, 10, device,
                                 "pallas", bls_case["auto"])]
 
+    def bls12_381_four_step():
+        ntt_small_gate(BLS12_381, device, ("auto",))
+        return ntt_slice(BLS12_381, bls381_case, card, 10, device)
+
+    def bls12_381_radix2():
+        ntt_small_gate(BLS12_381, device, ("pallas",))
+        return ntt_slice(BLS12_381, bls381_case, card, 10, device, "pallas",
+                         bls381_case["auto"])
+
+    mark("BLS MSM paths")
     ntt_runs, ntt_counts = counted(NTT_KERNELS, four_step)
     r2_runs, r2_counts = counted(RADIX2_KERNELS, radix2)
     bls_runs, bls_counts = counted(BLS_KERNELS, bls12_377)
+    b381_runs, b381_counts = zip(
+        counted(NTT_KERNELS, bls12_381_four_step),
+        counted(RADIX2_KERNELS, bls12_381_radix2, absent=("dft",)))
+    mark("four-step, radix-2, BLS12-377 and BLS12-381 NTT paths")
+    # the stagewise engine, each field counted on its own; the four-step
+    # 2^8 references are computed before the counts
+    all_curves = (BN254, *bls_curves)
+    small = {cv.name: engines_2_8(cv.fr, device) for cv in all_curves}
+    sw_runs, sw_counts = {}, {}
+    for cv in all_curves:
+        sw_runs[cv.name], sw_counts[cv.name] = counted(
+            STAGEWISE_KERNELS, lambda cv=cv: stagewise_path(
+                cv, device, card, small[cv.name],
+                sw_case if cv is BN254 else None),
+            absent=("dft", "small_ntt"))
+
+    mark("stagewise paths")
 
     def probe():
         from panda_tpu_torch.tools import profile_gather4
@@ -1519,10 +1687,12 @@ def main() -> int:
     probe_rows, probe_counts = counted(PROBE_KERNELS, probe)
     layout = probe_layout_line(sizes[1], probe_rows, res20["phase_a"]["ms"],
                                card)
-    for c in (ntt_counts, r2_counts, bls_counts, probe_counts,
-              *bls_counts_msm.values()):
+    for c in (ntt_counts, r2_counts, bls_counts, *b381_counts,
+              *sw_counts.values(), probe_counts, *bls_counts_msm.values()):
         for k, v in c.items():
             counts[k] += v
+
+    mark("gather probe")
 
     # 5. where the time goes, 6. device busy share (not counted)
     from panda_tpu_torch.runtime import api
@@ -1551,9 +1721,10 @@ def main() -> int:
          for impl, run in (("auto", r4), ("pallas", r2))])
     for sl in (*sizes, *(s for v in bls_sizes.values() for s in v)):
         sl["gm"].deinit()
-    for cs in (*cases, bls_case):
+    for cs in (*cases, bls_case, bls381_case):
         for impl in ENGINES:
             cs[impl]["gm"].deinit()
+    sw_case["jnp"]["gm"].deinit()
 
     # bounds a launch at the 2^20 shapes: the MSM kernels' from the 2^20
     # checks (point ops: padd on the bucket tables), fmul's and the DFT's
@@ -1562,7 +1733,14 @@ def main() -> int:
     bounds.update({k: res[k]["bound_ms"] for k in ("fmul", "dft")})
     bounds["small_ntt"] = (res["small_ntt"]["bound_ms"] +
                            2 * res["small_ntt_k64"]["bound_ms"]) / 3
-    ranking = gap_ranking(busy, bounds)
+    call_bounds = {b["label"]: bounds for b in busy
+                   if "2^20" in b["label"] and not b["label"].startswith("BLS")}
+    for cv in bls_curves:
+        r = bls_res[f"{cv.name} 2^20"]
+        call_bounds[f"BLS12-{cv.name[-3:]} MSM 2^20"] = {
+            k: r[k]["bound_ms"] for k in MSM_KERNELS}
+    mark("stage breakdowns and busy shares")
+    ranking = gap_ranking(busy, call_bounds)
 
     # the curve-templated MSM kernels: each curve's device ms a launch,
     # launches on its path, bound, plain ms and its instantiations' ptxas
@@ -1581,8 +1759,9 @@ def main() -> int:
         for cv, r in ((BN254, res20),
                       *((cv, bls_res[f"{cv.name} 2^20"]) for cv in bls_curves)):
             if k in r:
-                by_curve[cv.name].update(ms_2_20=r[k]["ms"],
-                                         bound_ms_2_20=r[k]["bound_ms"])
+                by_curve[cv.name]["bound_ms_2_20"] = r[k]["bound_ms"]
+                if "ms" in r[k]:
+                    by_curve[cv.name]["ms_2_20"] = r[k]["ms"]
             if k == "phase_a":
                 by_curve[cv.name]["ms_2_20_table_in_l2"] = \
                     r["phase_a_l2"]["ms"]
@@ -1591,18 +1770,52 @@ def main() -> int:
             f"{c} {v['ms']:.4f} ms a launch (bound {v['bound_ms']:.4f}, "
             f"plain {v['plain_ms']}), {v['launches']} launches, ptxas "
             f"{[row[1:] for row in v['ptxas']]}"
-            + (f", 2^20 {v['ms_2_20']:.4f} ms (bound {v['bound_ms_2_20']:.4f})"
-               if "ms_2_20" in v else "")
+            + (f", 2^20 {v['ms_2_20']:.4f} ms" if "ms_2_20" in v else "")
+            + (f", 2^20 bound {v['bound_ms_2_20']:.4f}"
+               if "bound_ms_2_20" in v else "")
             + (f", 2^20 with the table in L2 {v['ms_2_20_table_in_l2']:.4f} ms"
                if "ms_2_20_table_in_l2" in v else "")
             for c, v in by_curve.items()))
+
+    # the NTT kernels: each scalar field's device ms a launch, launches on
+    # its paths (four-step, radix-2, stagewise), bound, plain ms and its
+    # instantiation's ptxas row
+    field_paths = (
+        (BN254, res, (ntt_counts, r2_counts, sw_counts["bn254"])),
+        (BLS12_377, ntt_res["bls12_377"],
+         (bls_counts, sw_counts["bls12_377"])),
+        (BLS12_381, ntt_res["bls12_381"],
+         (*b381_counts, sw_counts["bls12_381"])))
+    for k, extra in (("fmul", None), ("dft", "dft_k4"),
+                     ("small_ntt", "small_ntt_k64")):
+        by_field = {}
+        for cv, r, path_counts in field_paths:
+            row = by_field[cv.fr.name] = {
+                "ms": r[k]["ms"], "launches": sum(c[k] for c in path_counts),
+                "max_abs_err": r[k]["max_abs_err"],
+                "bound_ms": r[k]["bound_ms"], "plain_ms": r[k]["plain_ms"],
+                "ptxas": instance_usage(usage, k, cv.name)}
+            if extra:
+                row.update({f"{extra}_ms": r[extra]["ms"],
+                            f"{extra}_bound_ms": r[extra]["bound_ms"],
+                            f"{extra}_plain_ms": r[extra]["plain_ms"]})
+        res[k] = dict(res[k], by_field=by_field)
+        log(f"[kernels by field] {k}: " + "; ".join(
+            f"{f} {v['ms']:.4f} ms a launch (bound {v['bound_ms']:.4f}, "
+            f"plain {v['plain_ms']:.3f}), {v['launches']} launches, ptxas "
+            f"{[row[1:] for row in v['ptxas']]}"
+            + (f", {extra} {v[extra + '_ms']:.4f} ms (bound "
+               f"{v[extra + '_bound_ms']:.4f})" if extra else "")
+            for f, v in by_field.items()))
 
     kernels = [{"name": k, "route": "cuda",
                 "source": f"panda_tpu_torch/csrc/{k}.cu",
                 "replaces": REPLACES[k], "launches": counts[k], **res[k]}
                for k in _ext.KERNELS]
     log(json.dumps({"slice": runs, "ntt": ntt_runs, "ntt_radix2": r2_runs,
-                    "bls12_377": bls_runs, "bls_msm": bls_runs_msm,
+                    "bls12_377": bls_runs, "bls12_381": b381_runs,
+                    "stagewise": sw_runs, "kernel_ids": ids,
+                    "ntt_kernels": ntt_res, "bls_msm": bls_runs_msm,
                     "bls_msm_counts": bls_counts_msm,
                     "bls_kernels": bls_res,
                     "bn254_registers_differ": bn254_registers,
@@ -1612,7 +1825,7 @@ def main() -> int:
                     "dft_k4": res["dft_k4"], "msm_2_20_shapes": res20,
                     "dg3_by_R": dg3_by_r, "probe": probe_rows,
                     "phase_a_layout": layout,
-                    "ranking": ranking, "ptxas": usage,
+                    "ranking": ranking, "ptxas": usage, "phase_s": phase_s,
                     "card": card}))
     log(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
         "after its imports")

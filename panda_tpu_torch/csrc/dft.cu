@@ -1,8 +1,8 @@
 // Batched length-K NTT (K = 2^0..2^5) along axis 1 of (8, K, nb) words, as
 // one product of the batch's bytes against a constant byte matrix on the
 // int8 tensor cores, then a regroup and one Montgomery reduction.  The field
-// (BN254 Fr or BLS12-377 Fr) is a template parameter; the launcher takes its
-// id.
+// (BN254 Fr, BLS12-377 Fr or BLS12-381 Fr) is a template parameter; the
+// launcher takes its id.
 //
 // Replaces the TPU kernel panda_tpu/ops/ntt_fused.py::dft_apply_fused (an
 // int8 digit-plane matmul on the MXU plus a regroup and a fold).  Every
@@ -14,9 +14,10 @@
 // with the Montgomery radix R folded in.  Output k, byte position o:
 //   acc_{k,o} = sum_{j,i} d_{j,i} * byte_o(C(j, k, i))   < K * 32 * 255^2,
 // which fits int32 for K <= 32; V_k = sum_o acc_{k,o} 2^(8 o) < K*32*255*p
-// (at most 9 words for both fields), and REDC(V_k) = V_k / R =
+// (at most 9 words for the three fields), and REDC(V_k) = V_k / R =
 // scale * sum_j w^(j k) x_j in the port's Montgomery form, in [0, 2p);
-// canonical_out adds one cond_sub_p.
+// canonical_out adds one cond_sub_p, which BLS12-381 Fr (a canon field,
+// whose REDC output is < r + 2^17) always takes, so its outputs are < r.
 // The JAX package's fold relies on its R = 2^270 >= 4096 p and cannot land
 // under the port's R = 2^256; one REDC of the 9-word value replaces it.
 //
@@ -209,7 +210,8 @@ PT_FN void dft_store_acc(uint32_t* E, const DftGeom& g, int kl, int cg,
 }
 
 // One output: its 32 byte-position sums acc[o * stride] (each < 2^31)
-// regrouped into the 9-word V, reduced, optionally made canonical.
+// regrouped into the 9-word V, reduced, optionally made canonical (always
+// for a canon field, whose values stay below p).
 template <class F>
 PT_FN fe dft_tail(const uint32_t* acc, int stride, int canonical_out) {
   uint32_t t[9];
@@ -225,7 +227,7 @@ PT_FN fe dft_tail(const uint32_t* acc, int stride, int canonical_out) {
   }
   t[8] = (uint32_t)carry;
   fe r = redc9<F>(t);
-  if (canonical_out) r = cond_sub_p<F>(r);
+  if (F::canon || canonical_out) r = cond_sub_p<F>(r);
   return r;
 }
 
@@ -432,6 +434,7 @@ extern "C" int ptt_dft(const uint32_t* x, const uint8_t* mat, uint32_t* out,
   switch (field) {
     case 0: return dft_launch<ptt::Fr254>(x, mat, out, nb, K, canonical_out, s);
     case 1: return dft_launch<ptt::Fr377>(x, mat, out, nb, K, canonical_out, s);
+    case 2: return dft_launch<ptt::Fr381>(x, mat, out, nb, K, canonical_out, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -8,7 +8,8 @@
 //   * an element is N little-endian 32-bit words, fe_t<N>, with Montgomery
 //     radix R = 2^(32 N), the wire radix: N = 8 (R = 2^256) for BN254's
 //     fields and the BLS scalar fields, N = 12 (R = 2^384) for the BLS base
-//     fields; every stored value in [0, 2p);
+//     fields; every stored value in [0, 2p), or in [0, p) for a field with
+//     canon = true (BLS12-381 Fr, whose 4r > 2^256);
 //   * tensors are limbs-first: word l of element i lives at ptr[l*stride + i],
 //     so neighbouring threads read neighbouring addresses per word.
 //
@@ -16,8 +17,11 @@
 // (add.cc / addc / mad.lo.cc / madc.hi.cc), the design of the CUDA reference
 // library.  With inputs < 2p and 4p < R the output is < 2p with no final
 // subtraction; add and sub end with one conditional -2p / +2p.  4p < R holds
-// for every field here but BLS12-381 Fr (4r > 2^256), which only the digit
-// recode uses, through a product with the plain 1 (exact for any a < R).
+// for every field here but BLS12-381 Fr (r ~ 0.453 2^256, so 2r < R < 4r):
+// its trait canon = true keeps every value in [0, p) instead (mont_mul ends
+// with cond_sub_p, add and sub reduce by p), as the plain
+// panda_tpu_torch/fields/mont.py does for the same field; `if constexpr`
+// leaves every other instantiation's code as it was.
 // The point formulas are the complete Renes-Costello-Batina algorithms 7-9
 // for a = 0, templated on a curve's traits (its Fp and b3 = 3b: 9 for BN254,
 // 3 for BLS12-377, 12 for BLS12-381), in the same op order as
@@ -174,6 +178,7 @@ inline void atomic_inc(int32_t* p) { *p += 1; }
 // ---------------------------------------------------------------------------
 struct Fp254 {  // BN254 base field
   static constexpr int N = 8;
+  static constexpr bool canon = false;  // values in [0, 2p): 4p < R
   static constexpr uint32_t ninv = 0xe4866389u;  // -p^-1 mod 2^32
   static PT_FN uint32_t p(int i) {
     const uint32_t v[8] = {0xd87cfd47u, 0x3c208c16u, 0x6871ca8du, 0x97816a91u,
@@ -194,6 +199,7 @@ struct Fp254 {  // BN254 base field
 
 struct Fr254 {  // BN254 scalar field
   static constexpr int N = 8;
+  static constexpr bool canon = false;
   static constexpr uint32_t ninv = 0xefffffffu;
   static constexpr int wide_top = 2;  // 2^256 < 2^(wide_top + 1) p
   static PT_FN uint32_t p(int i) {
@@ -219,6 +225,7 @@ struct Fr254 {  // BN254 scalar field
 // 2^10 255 r gives V + 2^32 r < 2^288, so redc9 fits 9 words.
 struct Fr377 {
   static constexpr int N = 8;
+  static constexpr bool canon = false;
   static constexpr uint32_t ninv = 0xffffffffu;
   static constexpr int wide_top = 3;  // 2^256 < 2^(wide_top + 1) p
   static PT_FN uint32_t p(int i) {
@@ -238,13 +245,27 @@ struct Fr377 {
   }
 };
 
-// BLS12-381 scalar field (255 bits), for the digit recode only: 2r < 2^256
-// but 4r > 2^256, so the [0, 2r) invariant of mont_mul, add_mod and sub_mod
-// does not hold here.  digits.cu multiplies by the plain 1, which is exact
-// for any a < R (output <= r), and then subtracts r once.
+// BLS12-381 scalar field (255 bits): 2r < 2^256 < 4r, so the [0, 2r)
+// invariant cannot hold (a product of two values near 2r passes R) and
+// canon = true keeps every value in [0, r) instead.  Bounds, for the NTT
+// kernels (fmul, dft, small_ntt) and the digit recode:
+//   * mont_mul with a < r and any b < R: t < 2r on entry to each CIOS step
+//     (t' < t / 2^32 + a + r), so t + a b_i + m r < 2r + (2^32 - 1) 2r <
+//     2^32 R fits N + 1 words; the result (a b + M r) / R < a + r < 2r, and
+//     < r^2 / R + r < 1.46r for b < r, so one cond_sub_p lands it in
+//     [0, r).  (An a near 2r would overflow: for a > ~1.2r, (a + r)(2^32 +
+//     1) > 2^32 R.)  digits.cu's product of any a < R with the plain 1 is
+//     <= r, as before, and its own cond_sub_p is then the identity;
+//   * add_mod: a + b < 2r < R, minus r unless that borrows; sub_mod adds r
+//     on a borrow;
+//   * redc9 (the DFT): V < 32 * 32 * 255 r < 2^273, V + 2^32 r < 2^288; the
+//     output < V / R + r < r + 2^17, so dft_tail always subtracts r once;
+//   * reduce_wide: any word below 2^256 < 4r takes 2r then r (wide_top 1).
 struct Fr381 {
   static constexpr int N = 8;
+  static constexpr bool canon = true;
   static constexpr uint32_t ninv = 0xffffffffu;
+  static constexpr int wide_top = 1;  // 2^256 < 2^(wide_top + 1) p
   static PT_FN uint32_t p(int i) {
     const uint32_t v[8] = {0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u,
                            0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
@@ -265,6 +286,7 @@ struct Fr381 {
 // BLS12-377 base field (377 bits), 12 words, R = 2^384: 4p < 2^380.
 struct Fp377 {
   static constexpr int N = 12;
+  static constexpr bool canon = false;
   static constexpr uint32_t ninv = 0xffffffffu;
   static PT_FN uint32_t p(int i) {
     const uint32_t v[12] = {0x00000001u, 0x8508c000u, 0x30000000u, 0x170b5d44u,
@@ -289,6 +311,7 @@ struct Fp377 {
 // BLS12-381 base field (381 bits), 12 words, R = 2^384: 4p < 2^383.
 struct Fp381 {
   static constexpr int N = 12;
+  static constexpr bool canon = false;
   static constexpr uint32_t ninv = 0xfffcfffdu;
   static PT_FN uint32_t p(int i) {
     const uint32_t v[12] = {0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu,
@@ -328,11 +351,11 @@ struct Bls12_381 {
   static constexpr int b3 = 12;
 };
 
-// The NTT launchers take a field id: 0 is Fr254, 1 is Fr377, in the order of
-// panda_tpu_torch/ops/_ext.py's NTT_FIELDS.  The MSM launchers take a curve
-// id (point_ops, wscan, phase_a: 0 Bn254, 1 Bls12_377, 2 Bls12_381, the
-// order of _ext.MSM_CURVES) or a scalar-field id (digits: 0 Fr254, 1 Fr377,
-// 2 Fr381, the order of _ext.MSM_FIELDS).
+// The NTT launchers take a field id: 0 is Fr254, 1 is Fr377, 2 is Fr381, in
+// the order of panda_tpu_torch/ops/_ext.py's NTT_FIELDS.  The MSM launchers
+// take a curve id (point_ops, wscan, phase_a: 0 Bn254, 1 Bls12_377,
+// 2 Bls12_381, the order of _ext.MSM_CURVES) or a scalar-field id (digits:
+// 0 Fr254, 1 Fr377, 2 Fr381, the order of _ext.MSM_FIELDS).
 
 template <int N>
 struct fe_t {
@@ -344,10 +367,41 @@ using fe = fe_t<8>;
 // Field arithmetic
 // ---------------------------------------------------------------------------
 
+template <int N>
+PT_FN fe_t<N> select(bool c, const fe_t<N>& a, const fe_t<N>& b) {
+  fe_t<N> r;
+#pragma unroll
+  for (int j = 0; j < N; ++j) r.w[j] = c ? a.w[j] : b.w[j];
+  return r;
+}
+
+// v - p if v >= p else v (canonicalises a value <= 2p - 1).
+template <class F>
+PT_FN fe_t<F::N> cond_sub_p(const fe_t<F::N>& v) {
+  constexpr int N = F::N;
+  fe_t<N> d;
+  d.w[0] = sub_cc(v.w[0], F::p(0));
+#pragma unroll
+  for (int j = 1; j < N; ++j) d.w[j] = subc_cc(v.w[j], F::p(j));
+  const uint32_t borrow = subc(0, 0);
+  return select(borrow != 0, v, d);
+}
+
+// The modulus add_mod and sub_mod reduce by: p for a canon field, else 2p.
+template <class F>
+PT_FN uint32_t add_bound(int i) {
+  if constexpr (F::canon)
+    return F::p(i);
+  else
+    return F::p2(i);
+}
+
 // CIOS Montgomery product a b R^-1.  Output < 2p for a, b < 2p; for b = 1
 // (plain integer) and any a < R the output is <= p.  For a >= 2p and any
 // other b the (N + 1)-word accumulator can overflow (mid-loop t < a + p,
-// which may pass R), so callers keep a < 2p.
+// which may pass R), so callers keep a < 2p.  A canon field (Fr381) takes
+// a < p and any b < R and ends with cond_sub_p: output < p (the bounds are
+// at struct Fr381).
 template <class F>
 PT_FN fe_t<F::N> mont_mul(const fe_t<F::N>& a, const fe_t<F::N>& b) {
   constexpr int N = F::N;
@@ -358,7 +412,8 @@ PT_FN fe_t<F::N> mont_mul(const fe_t<F::N>& a, const fe_t<F::N>& b) {
   for (int i = 0; i < N; ++i) {
     const uint32_t bi = b.w[i];
     // t += a * b_i: low halves into words 0..N-1, high halves into 1..N.
-    // t < 4p < R on entry, so t + a b_i < 2^32 R fits in N + 1 words.
+    // t < 4p < R on entry (t < 2p for a canon field with a < p), so
+    // t + a b_i + m p < 2^32 R fits in N + 1 words.
     t[0] = mad_lo_cc(a.w[0], bi, t[0]);
 #pragma unroll
     for (int j = 1; j < N; ++j) t[j] = madc_lo_cc(a.w[j], bi, t[j]);
@@ -386,13 +441,15 @@ PT_FN fe_t<F::N> mont_mul(const fe_t<F::N>& a, const fe_t<F::N>& b) {
   fe_t<N> r;
 #pragma unroll
   for (int j = 0; j < N; ++j) r.w[j] = t[j];
+  if constexpr (F::canon) r = cond_sub_p<F>(r);
   return r;
 }
 
 // Montgomery reduction (t + M p) / R of a 9-word t, with the unique M < R:
 // the reduction half of each CIOS step, eight times.  Needs
 // t + 2^32 p < 2^288 (then every step fits 9 words); the result is
-// < t / R + p.  8-word NTT fields only.
+// < t / R + p, which for a canon field may pass p (callers subtract p).
+// 8-word NTT fields only.
 template <class F>
 PT_FN fe redc9(uint32_t (&t)[9]) {
 #pragma unroll
@@ -416,16 +473,8 @@ PT_FN fe redc9(uint32_t (&t)[9]) {
   return r;
 }
 
-template <int N>
-PT_FN fe_t<N> select(bool c, const fe_t<N>& a, const fe_t<N>& b) {
-  fe_t<N> r;
-#pragma unroll
-  for (int j = 0; j < N; ++j) r.w[j] = c ? a.w[j] : b.w[j];
-  return r;
-}
-
 // (a + b) mod 2p for a, b < 2p: a + b < 4p < R, then subtract 2p unless
-// that borrows.
+// that borrows.  A canon field: (a + b) mod p for a, b < p (a + b < 2p < R).
 template <class F>
 PT_FN fe_t<F::N> add_mod(const fe_t<F::N>& a, const fe_t<F::N>& b) {
   constexpr int N = F::N;
@@ -434,14 +483,15 @@ PT_FN fe_t<F::N> add_mod(const fe_t<F::N>& a, const fe_t<F::N>& b) {
 #pragma unroll
   for (int j = 1; j < N - 1; ++j) s.w[j] = addc_cc(a.w[j], b.w[j]);
   s.w[N - 1] = addc(a.w[N - 1], b.w[N - 1]);
-  d.w[0] = sub_cc(s.w[0], F::p2(0));
+  d.w[0] = sub_cc(s.w[0], add_bound<F>(0));
 #pragma unroll
-  for (int j = 1; j < N; ++j) d.w[j] = subc_cc(s.w[j], F::p2(j));
-  const uint32_t borrow = subc(0, 0);  // all ones when s < 2p
+  for (int j = 1; j < N; ++j) d.w[j] = subc_cc(s.w[j], add_bound<F>(j));
+  const uint32_t borrow = subc(0, 0);  // all ones when s < 2p (p if canon)
   return select(borrow != 0, s, d);
 }
 
-// (a - b) mod 2p for a, b < 2p: add 2p back when a - b borrows.
+// (a - b) mod 2p for a, b < 2p: add 2p back when a - b borrows.  A canon
+// field: (a - b) mod p for a, b < p, adding p back.
 template <class F>
 PT_FN fe_t<F::N> sub_mod(const fe_t<F::N>& a, const fe_t<F::N>& b) {
   constexpr int N = F::N;
@@ -450,23 +500,12 @@ PT_FN fe_t<F::N> sub_mod(const fe_t<F::N>& a, const fe_t<F::N>& b) {
 #pragma unroll
   for (int j = 1; j < N; ++j) d.w[j] = subc_cc(a.w[j], b.w[j]);
   const uint32_t mask = subc(0, 0);  // all ones when a < b
-  r.w[0] = add_cc(d.w[0], F::p2(0) & mask);
+  r.w[0] = add_cc(d.w[0], add_bound<F>(0) & mask);
 #pragma unroll
-  for (int j = 1; j < N - 1; ++j) r.w[j] = addc_cc(d.w[j], F::p2(j) & mask);
-  r.w[N - 1] = addc(d.w[N - 1], F::p2(N - 1) & mask);
+  for (int j = 1; j < N - 1; ++j)
+    r.w[j] = addc_cc(d.w[j], add_bound<F>(j) & mask);
+  r.w[N - 1] = addc(d.w[N - 1], add_bound<F>(N - 1) & mask);
   return r;
-}
-
-// v - p if v >= p else v (canonicalises a value <= 2p - 1).
-template <class F>
-PT_FN fe_t<F::N> cond_sub_p(const fe_t<F::N>& v) {
-  constexpr int N = F::N;
-  fe_t<N> d;
-  d.w[0] = sub_cc(v.w[0], F::p(0));
-#pragma unroll
-  for (int j = 1; j < N; ++j) d.w[j] = subc_cc(v.w[j], F::p(j));
-  const uint32_t borrow = subc(0, 0);
-  return select(borrow != 0, v, d);
 }
 
 // Word i of p 2^j, for 0 <= j < 32.
@@ -477,8 +516,9 @@ PT_FN uint32_t p_shl(int i, int j) {
 }
 
 // Any value below 2^256 -> canonical [0, p): conditional subtractions of
-// 2^j p for j = F::wide_top down to 0, as the plain mont.reduce_wire.
-// 8-word NTT fields only.
+// 2^j p for j = F::wide_top down to 0, as the plain mont.reduce_wire
+// (2^256 < 2^(wide_top + 1) p, so after the step of j the value is below
+// 2^j p).  8-word NTT fields only.
 template <class F>
 PT_FN fe reduce_wide(const fe& a) {
   fe v = a;

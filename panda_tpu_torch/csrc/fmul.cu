@@ -1,13 +1,16 @@
-// Elementwise Montgomery multiply over an NTT's scalar field (BN254 Fr or
-// BLS12-377 Fr), with an optional final conditional subtraction of p.
+// Elementwise Montgomery multiply over an NTT's scalar field (BN254 Fr,
+// BLS12-377 Fr or BLS12-381 Fr), with an optional final conditional
+// subtraction of p.
 //
 // Replaces the TPU kernel panda_tpu/ops/point_pallas.py::fmul.  On the NTT
 // path it multiplies each four-step level's DFT output (< 2p) by the
-// inter-level twiddle table (canonical, < p), and it builds the T1 tables of
-// both NTT engines.  One thread per element: a CIOS product from field.cuh
-// (output < 2p for a, b < 2p) and, with canonical_out, one cond_sub_p to
-// [0, p).  Words are limbs-first (8, n), so a warp reads 32 consecutive words
-// of each limb.
+// inter-level twiddle table (canonical, < p), builds the T1 tables of the
+// four-step and radix-2 engines, and makes the stagewise engine's twiddle
+// products and its inverse's n^-1 scale.  One thread per element: a CIOS
+// product from field.cuh (output < 2p for a, b < 2p; for BLS12-381 Fr, a
+// canon field, a < p and any b < 2^256 give < p) and, with canonical_out,
+// one cond_sub_p to [0, p).  Words are limbs-first (8, n), so a warp reads
+// 32 consecutive words of each limb.
 //
 // Bound on the H100: memory traffic (96 bytes per element: two operands in,
 // one result out) against 264 32-bit multiply-adds per element; at 2^20
@@ -56,6 +59,7 @@ extern "C" int ptt_fmul(const uint32_t* a, const uint32_t* b, uint32_t* out,
   switch (field) {
     case 0: return fmul_launch<ptt::Fr254>(a, b, out, n, canonical_out, s);
     case 1: return fmul_launch<ptt::Fr377>(a, b, out, n, canonical_out, s);
+    case 2: return fmul_launch<ptt::Fr381>(a, b, out, n, canonical_out, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
 // Batched radix-2 NTT of length K = 2^log_k (2 <= K <= 256) along axis 1 of
-// (8, K, nb) words, natural order in and out, over BN254 Fr or BLS12-377 Fr
-// (a template parameter; the launcher takes a field id).
+// (8, K, nb) words, natural order in and out, over BN254 Fr, BLS12-377 Fr or
+// BLS12-381 Fr (a template parameter; the launcher takes a field id).
 //
 // Replaces the TPU kernel panda_tpu/ops/ntt_pallas.py::small_ntt_batch (the
 // radix-2 engine's pass, PANDA_NTT_IMPL=pallas).  For each column c:
@@ -21,7 +21,9 @@
 //
 // Every value stays in [0, 2p): mont_mul of values < 2p is < 2p and
 // add_mod / sub_mod end with one conditional 2p, so the JAX kernel's lazy
-// bounds and its closing multiply by ONE have no counterpart here.
+// bounds and its closing multiply by ONE have no counterpart here.  For
+// BLS12-381 Fr (a canon field, field.cuh) every value stays in [0, p): the
+// input below p (or reduced at load), the tables canonical.
 //
 // Design: a block holds a tile of TC columns (TC = min(32, 2048 / K)), all K
 // elements of each in shared memory, laid out [word][j][column] (32 K TC
@@ -173,6 +175,10 @@ extern "C" int ptt_small_ntt(const uint32_t* x, const uint32_t* tw,
                                           s);
     case 1:
       return small_ntt_launch<ptt::Fr377>(x, tw, pre, scale, out, nb, log_k,
+                                          pre_cols, reduce_in, canonical_out,
+                                          s);
+    case 2:
+      return small_ntt_launch<ptt::Fr381>(x, tw, pre, scale, out, nb, log_k,
                                           pre_cols, reduce_in, canonical_out,
                                           s);
   }

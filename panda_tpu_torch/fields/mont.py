@@ -8,9 +8,16 @@ Counterpart of ``panda_tpu/fields/mont.py``.  The port's own representation:
 * the Montgomery radix is R = 2^(8 * n_bytes), the wire radix
   (2^256 for BN254), so wire bytes ARE the internal form: ingest is a
   reinterpretation, output a canonicalisation;
-* every stored value lies in [0, 2p).  With 4p < R, a Montgomery product of
-  two such values is again < 2p with no final subtraction, and add/sub end
-  with one conditional +-2p.
+* every stored value lies in [0, 2p) where 4p < R: a Montgomery product
+  of two such values is (a b + M p) / R < 4p^2 / R + p < 2p with no final
+  subtraction, and add/sub end with one conditional +-2p;
+* where 4p > R (BLS12-381 Fr only: r ~ 0.453 * 2^256, so 2r < R < 4r, see
+  :func:`canon`) every stored value lies in [0, p): a product of a, b < p
+  is < p^2 / R + p < 1.46p and ends with one conditional -p (a < R times
+  b < p is < 2p, so the same subtraction lands it below p), a + b < 2p < R
+  ends with a conditional -p and a - b with a conditional +p; canonical16
+  is then the identity on stored values.  (Under [0, 2p) the product of
+  two values near 2p passes R and its top is lost.)
 
 The CUDA kernels (``csrc/field.cuh``) work on the words directly.  This
 module is their plain version: torch on the CPU has no uint32 add, shift or
@@ -49,13 +56,19 @@ def radix(spec: FieldSpec) -> int:
     return spec.wire_r
 
 
+def canon(spec: FieldSpec) -> bool:
+    """True where 4p > R, so stored values stay in [0, p) (BLS12-381 Fr);
+    False for the [0, 2p) fields."""
+    return radix(spec) < 4 * spec.modulus
+
+
 def _int_l16(v: int, L: int) -> list:
     return [(v >> (LIMB * i)) & MASK for i in range(L)]
 
 
 class _Consts(NamedTuple):
     p: torch.Tensor          # (L,) int64 16-bit limbs of p
-    two_p: torch.Tensor
+    bound: torch.Tensor      # add/sub modulus: p where canon(spec), else 2p
     r2: torch.Tensor         # R^2 mod p
     unity: torch.Tensor      # plain integer 1
     diag: torch.Tensor       # (L*L,) anti-diagonal index i + j
@@ -73,8 +86,8 @@ def _consts(spec: FieldSpec, device: torch.device) -> _Consts:
     ii = np.arange(L)
     diag = torch.tensor((ii[:, None] + ii[None, :]).reshape(-1),
                         dtype=torch.int64, device=device)
-    return _Consts(t(p), t(2 * p), t(r * r % p), t(1), diag,
-                   (-pow(p, -1, 1 << LIMB)) % (1 << LIMB))
+    return _Consts(t(p), t(p if canon(spec) else 2 * p), t(r * r % p), t(1),
+                   diag, (-pow(p, -1, 1 << LIMB)) % (1 << LIMB))
 
 
 def _col(v: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -115,7 +128,7 @@ def _norm(t: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# L16 arithmetic (values in [0, 2p) unless stated)
+# L16 arithmetic (stored values: [0, 2p), or [0, p) where canon(spec))
 # ---------------------------------------------------------------------------
 
 def redc16(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
@@ -135,10 +148,12 @@ def redc16(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
 
 
 def mul16(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Montgomery product a b R^-1 mod p; output < 2p for inputs < 2p.
+    """Montgomery product a b R^-1 mod p; output < 2p for inputs < 2p, or
+    < p for inputs < p where canon(spec) (one conditional -p).
 
     Exact for any inputs < R whose result fits (e.g. a < R, b < p gives a
-    result < 2p): every column stays below 2^40."""
+    result < 2p, and < p where canon(spec)): every column stays below
+    2^40."""
     c = _consts(spec, a.device)
     a, b = torch.broadcast_tensors(a, b)
     L = a.shape[0]
@@ -146,7 +161,8 @@ def mul16(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     prod = (a.unsqueeze(1) * b.unsqueeze(0)).reshape((L * L,) + batch)
     t = a.new_zeros((2 * L + 1,) + batch)
     t.index_add_(0, c.diag, prod)
-    return redc16(spec, t)
+    out = redc16(spec, t)
+    return canonical16(spec, out) if canon(spec) else out
 
 
 def _pick(cand: torch.Tensor, use_second: torch.Tensor) -> torch.Tensor:
@@ -154,18 +170,18 @@ def _pick(cand: torch.Tensor, use_second: torch.Tensor) -> torch.Tensor:
 
 
 def add16(spec: FieldSpec, a, b):
-    """(a + b) mod 2p."""
+    """(a + b) mod 2p, or mod p where canon(spec)."""
     c = _consts(spec, a.device)
     s = a + b
-    cand, carry = _norm(torch.stack((s, s - _col(c.two_p, s.dim() - 1)), 1))
+    cand, carry = _norm(torch.stack((s, s - _col(c.bound, s.dim() - 1)), 1))
     return _pick(cand, carry[1] >= 0)
 
 
 def sub16(spec: FieldSpec, a, b):
-    """(a - b) mod 2p."""
+    """(a - b) mod 2p, or mod p where canon(spec)."""
     c = _consts(spec, a.device)
     d = a - b
-    cand, carry = _norm(torch.stack((d, d + _col(c.two_p, d.dim() - 1)), 1))
+    cand, carry = _norm(torch.stack((d, d + _col(c.bound, d.dim() - 1)), 1))
     return _pick(cand, carry[0] < 0)
 
 
@@ -174,14 +190,16 @@ def neg16(spec: FieldSpec, a):
 
 
 def canonical16(spec: FieldSpec, a):
-    """[0, 2p) -> [0, p)."""
+    """[0, 2p) -> [0, p) (the identity on [0, p), where canon(spec) keeps
+    every stored value)."""
     c = _consts(spec, a.device)
     cand, carry = _norm(torch.stack((a, a - _col(c.p, a.dim() - 1)), 1))
     return _pick(cand, carry[1] >= 0)
 
 
 def mul_small16(spec: FieldSpec, a, k: int):
-    """k a mod 2p by a double-and-add chain (k = 9 for BN254's 3b)."""
+    """k a mod 2p (mod p where canon(spec)) by a double-and-add chain
+    (k = 9 for BN254's 3b)."""
     acc = None
     for bit in bin(k)[2:]:
         if acc is not None:

@@ -151,8 +151,9 @@ def on_cpu(name: str, t: torch.Tensor) -> bool:
 
 
 # The fields the NTT kernels (fmul, dft, small_ntt) are built for, in the
-# order of their field ids (csrc/field.cuh: 0 is Fr254, 1 is Fr377).
-NTT_FIELDS = ("bn254_fr", "bls12_377_fr")
+# order of their field ids (csrc/field.cuh: 0 is Fr254, 1 is Fr377, 2 is
+# Fr381).
+NTT_FIELDS = ("bn254_fr", "bls12_377_fr", "bls12_381_fr")
 # The curves the MSM point kernels (phase_a, point_ops, wscan) are built for,
 # in the order of their curve ids (csrc/field.cuh: Bn254, Bls12_377,
 # Bls12_381), and the scalar fields of the digits kernel, in the order of its
@@ -168,6 +169,5 @@ def kernel_field(name: str, spec, built_for) -> int:
     if spec.name not in built_for:
         raise NotImplementedError(
             f"{name}: the CUDA kernel is built for {', '.join(built_for)}, "
-            f"not {spec.name}; what is left is in ROADMAP: the BLS12-381 "
-            "scalar-field NTT kernels, and the MSM above 2^20 points")
+            f"not {spec.name}")
     return built_for.index(spec.name)

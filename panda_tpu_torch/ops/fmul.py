@@ -1,12 +1,14 @@
 """Elementwise Montgomery multiply of two word tensors.
 
 Counterpart of ``panda_tpu/ops/point_pallas.py::fmul``; the kernel is
-``csrc/fmul.cu`` (BN254 Fr and BLS12-377 Fr).  ``a`` and ``b`` are (8, N)
-int32 words in the port's Montgomery form, each below 2p; the result
-a b R^-1 is below 2p, or
-canonical in [0, p) with ``canonical_out``.  Kernel and plain version
-compute the same (a b + M p) / R with the unique M < R, so they agree bit
-for bit.
+``csrc/fmul.cu`` (BN254 Fr, BLS12-377 Fr and BLS12-381 Fr).  ``a`` and
+``b`` are (8, N) int32 words in the port's Montgomery form, each below 2p;
+the result a b R^-1 is below 2p, or canonical in [0, p) with
+``canonical_out``.  BLS12-381 Fr (4p > 2^256, ``mont.canon``) keeps its
+values below p: ``a`` must be below p (its CIOS accumulator overflows for
+a above ~1.2p), ``b`` any word, and the result is below p.  Kernel and
+plain version compute the same (a b + M p) / R with the unique M < R
+(then the same conditional subtractions), so they agree bit for bit.
 """
 
 from __future__ import annotations

@@ -2,8 +2,9 @@
 
 Counterpart of ``panda_tpu/ops/ntt_fused.py::dft_apply_fused`` and of the
 DFT-of-constants matrix of ``panda_tpu/ops/ntt_mxu.py``; the kernel is
-``csrc/dft.cu`` (BN254 Fr and BLS12-377 Fr).  ``x`` is (W, K, nb) int32
-words (W = 8, any value below 2^256), transformed along axis 1:
+``csrc/dft.cu`` (BN254 Fr, BLS12-377 Fr and BLS12-381 Fr).  ``x`` is
+(W, K, nb) int32 words (W = 8, any value below 2^256), transformed along
+axis 1:
 
     y[k] = scale * sum_j w^(j k) x[j]        (Montgomery form, natural order)
 
@@ -11,7 +12,8 @@ The digits are the 4 W bytes of each element, the matrix holds the bytes of
 C(j, k, i) = w^(j k) * scale * R * 2^(8 i) mod p, so the byte-position sums
 regroup into V_k = sum_{j,i} d_{j,i} C(j, k, i) < K * 4W * 255 * p and one
 Montgomery reduction gives y[k] = V_k / R in [0, 2p) (canonical with
-``canonical_out``).  The JAX package's fold needs its R >= 4096 p; with the
+``canonical_out``, and always for BLS12-381 Fr, whose values stay below p:
+``mont.canon``).  The JAX package's fold needs its R >= 4096 p; with the
 port's R = 2^256 the reduction replaces it (see ``csrc/dft.cu``).
 """
 
@@ -92,7 +94,7 @@ def dft_apply_fused_plain(spec: FieldSpec, x: torch.Tensor, log_k: int,
     t = acc.new_zeros((2 * L + 1, K, nb))
     t[:L] = (acc[:, 0::2] + (acc[:, 1::2] << 8)).permute(1, 0, 2)
     out = mont.redc16(spec, t)
-    if canonical_out:
+    if canonical_out or mont.canon(spec):
         out = mont.canonical16(spec, out)
     return mont.from_l16(out)
 

@@ -11,7 +11,9 @@ length-A pass.  Natural order in and out; no bit reversal anywhere.  The
 inverse's n^-1 scale rides in the top level's matrix.
 
 Value bounds: a DFT pass takes any words below 2^256 and returns values in
-[0, 2p); ``fmul`` takes those times the canonical table (< p) to [0, 2p);
+[0, 2p) ([0, p) for BLS12-381 Fr, whose values stay below p:
+``mont.canon``); ``fmul`` takes those times the canonical table (< p) to
+[0, 2p) ([0, p));
 the top level's outer pass ends with one conditional subtraction of p, so
 the output is canonical and its words are the wire bytes.
 """

@@ -2,8 +2,8 @@
 passes of up to 2^8 butterfly stages, composed by the four-step recursion.
 
 Counterpart of ``panda_tpu/ops/ntt_pallas.py`` (the name is kept so a reader
-finds the counterpart); the kernel is ``csrc/small_ntt.cu`` (BN254 Fr and
-BLS12-377 Fr).  With n = A B and w the length-n root,
+finds the counterpart); the kernel is ``csrc/small_ntt.cu`` (BN254 Fr,
+BLS12-377 Fr and BLS12-381 Fr).  With n = A B and w the length-n root,
 
     X[B k1 + k2] = NTT_A( w^(j1 k2) NTT_B(x[j1 + A j2], over j2), over j1 )
 
@@ -15,8 +15,9 @@ as in the JAX package, with its splits (``maxk = 8``, balanced
   the device by ``ntt_mxu.t1_table``;
 * the inter-level twiddle is read from that (W, A, B) table by column
   k2 = c // batch, not from a broadcast copy the size of the data;
-* every value stays in [0, 2p) (no lazy bounds, no closing multiply by
-  ONE); the first pass (the leaf) brings any input word below 2^256 to
+* every value stays in [0, 2p), or [0, p) for BLS12-381 Fr
+  (``mont.canon``) (no lazy bounds, no closing multiply by ONE); the first
+  pass (the leaf) brings any input word below 2^256 to
   [0, p) at load, and the top pass applies the inverse's n^-1 and the
   canonical subtraction at store, so no separate pass follows.
 
@@ -108,7 +109,9 @@ def small_ntt_batch(spec: FieldSpec, x: torch.Tensor, log_k: int,
     (j, c) is multiplied by pre_tw[:, j, c // (nb / B)] at load.  ``scale``
     (optional, (W,) canonical words): every output is multiplied by it.
     Inputs below 2p, or any word below 2^256 with ``reduce_in``; outputs
-    below 2p, or canonical with ``canonical_out``."""
+    below 2p, or canonical with ``canonical_out``.  BLS12-381 Fr
+    (``mont.canon``): inputs below p (or any word with ``reduce_in``),
+    outputs below p."""
     W, K, nb = x.shape
     if K != 1 << log_k or tw_rows.shape != (W, K):
         raise ValueError(f"small_ntt_batch: x {tuple(x.shape)} and twiddle "

@@ -5,10 +5,8 @@ same entry points and curve-suffixed aliases, the same wire contract (LE
 Montgomery bytes in; a 3-field result blob, or the transformed elements,
 out) and the same ``PandaError`` codes for malformed input.
 
-On the card the MSM runs for BN254, BLS12-377 and BLS12-381 (48-byte base
-coordinates for the BLS curves), and the NTT for BN254 and BLS12-377.  The
-BLS12-381 NTT (its 4r > 2^256 breaks the kernels' [0, 2r) invariant) raises
-``NotImplementedError`` there and runs on CPU tensors.
+On the card the MSM (up to 2^20 points) and the NTT run for BN254,
+BLS12-377 and BLS12-381 (48-byte base coordinates for the BLS curves).
 """
 
 from __future__ import annotations

@@ -33,7 +33,8 @@ from panda_tpu_torch.reference import curve_ref
 from panda_tpu_torch.tools import profile_gather4
 
 CSRC = _ext.CSRC
-NTT_FIELDS = pytest.mark.parametrize("fr", [BN254_FR, BLS12_377_FR],
+NTT_FIELDS = pytest.mark.parametrize("fr", [BN254_FR, BLS12_377_FR,
+                                            BLS12_381_FR],
                                      ids=lambda f: f.name)
 BLS_CURVES = pytest.mark.parametrize("curve", [BLS12_377, BLS12_381],
                                      ids=lambda c: c.name)
@@ -102,6 +103,32 @@ void fp_all(int op, In a, In b, Out r, int64_t n) {
     store_fe(r, i, n, z);
   }
 }
+// An NTT kernel's body for field id `id` in the order of _ext.NTT_FIELDS.
+template <template <class> class Body, class... A>
+void by_field(int id, A... a) {
+  if (id == 0) Body<Fr254>::run(a...);
+  else if (id == 1) Body<Fr377>::run(a...);
+  else Body<Fr381>::run(a...);
+}
+template <class F> struct Fmul {
+  static void run(In a, In b, Out r, int64_t n, int canonical_out) {
+    fmul_all<F>(a, b, r, n, canonical_out);
+  }
+};
+template <class F> struct Dft {
+  static void run(In x, In mat, Out out, int64_t nb, int K,
+                  int canonical_out) {
+    dft_host<F>(x, mat, out, nb, K, canonical_out);
+  }
+};
+template <class F> struct SmallNtt {
+  static void run(In x, In tw, In pre, In scale, Out out, int64_t nb,
+                  int log_k, int64_t pre_cols, int reduce_in,
+                  int canonical_out) {
+    small_ntt_all<F>(x, tw, pre, scale, out, nb, log_k, pre_cols, reduce_in,
+                     canonical_out);
+  }
+};
 // Each MSM body over every element, for curve (or scalar-field) id `id` in
 // the order of _ext.MSM_CURVES (MSM_FIELDS).
 template <template <class> class Body, class... A>
@@ -153,12 +180,17 @@ template <class C> struct Wscan {
 };
 
 extern "C" {
-// field: 0 Fp254, 1 Fp377, 2 Fp381, 3 Fr381
+// field: 0 Fp254, 1 Fp377, 2 Fp381, 3 Fr381; op: 0 mont_mul, 1 add_mod,
+// 2 sub_mod
 void h_fp(int op, int field, In a, In b, Out r, int64_t n) {
   if (field == 0) fp_all<Fp254>(op, a, b, r, n);
   else if (field == 1) fp_all<Fp377>(op, a, b, r, n);
   else if (field == 2) fp_all<Fp381>(op, a, b, r, n);
   else fp_all<Fr381>(op, a, b, r, n);
+}
+void h_reduce_wide_fr381(In a, Out r, int64_t n) {
+  for (int64_t i = 0; i < n; ++i)
+    store_fe(r, i, n, reduce_wide<Fr381>(load_fe(a, i, n)));
 }
 void h_padd(In px, In py, In pz, In qx, In qy, In qz, Out rx, Out ry, Out rz,
             int64_t n, int curve) {
@@ -190,23 +222,17 @@ void h_wscan(In bx, In by, In bz, Out rx, Out ry, Out rz, Out wx, Out wy,
   by_curve<Wscan>(curve, bx, by, bz, rx, ry, rz, wx, wy, wz, N, S);
 }
 void h_fmul(In a, In b, Out r, int64_t n, int canonical_out, int field) {
-  if (field) fmul_all<Fr377>(a, b, r, n, canonical_out);
-  else fmul_all<Fr254>(a, b, r, n, canonical_out);
+  by_field<Fmul>(field, a, b, r, n, canonical_out);
 }
 void h_dft(In x, In mat, Out out, int64_t nb, int K, int canonical_out,
            int field) {
-  if (field) dft_host<Fr377>(x, mat, out, nb, K, canonical_out);
-  else dft_host<Fr254>(x, mat, out, nb, K, canonical_out);
+  by_field<Dft>(field, x, mat, out, nb, K, canonical_out);
 }
 void h_small_ntt(In x, In tw, In pre, In scale, Out out, int64_t nb,
                  int log_k, int64_t pre_cols, int reduce_in,
                  int canonical_out, int field) {
-  if (field)
-    small_ntt_all<Fr377>(x, tw, pre, scale, out, nb, log_k, pre_cols,
-                         reduce_in, canonical_out);
-  else
-    small_ntt_all<Fr254>(x, tw, pre, scale, out, nb, log_k, pre_cols,
-                         reduce_in, canonical_out);
+  by_field<SmallNtt>(field, x, tw, pre, scale, out, nb, log_k, pre_cols,
+                     reduce_in, canonical_out);
 }
 void h_dg3(const int32_t* tab, const int32_t* idx, int32_t* out, int64_t G,
            int R) {
@@ -302,18 +328,19 @@ def test_field_constants_match_field_config(struct, spec):
     assert arr("p2") == 2 * p
     assert arr("one") == R % p
     assert ninv == (-pow(p, -1, 1 << 32)) % (1 << 32)
-    if struct == "Fr381":        # digits only: a product with the plain 1
+    canon = re.search(r"bool canon = (true|false);", body).group(1)
+    assert (canon == "true") == mont.canon(spec)
+    if struct == "Fr381":        # the [0, p) invariant of a canon field
         assert 2 * p < R < 4 * p
     else:                        # the [0, 2p) invariant of field.cuh
         assert 4 * p < R
     top = re.search(r"wide_top = (\d+);", body)
-    if struct in ("Fr254", "Fr377"):         # the NTT fields: reduce_wide
+    if struct in ("Fr254", "Fr377", "Fr381"):   # the NTT fields: reduce_wide
         assert int(top.group(1)) == (R // p).bit_length() - 1
-        assert p << int(top.group(1)) < R
+        assert p << int(top.group(1)) < R <= p << (int(top.group(1)) + 1)
+        ntt_fused.check_bounds(spec, 5)         # the DFT's 9-word REDC
     else:
         assert top is None
-    if struct == "Fr377":                    # the DFT's 9-word REDC
-        ntt_fused.check_bounds(spec, 5)
 
 
 @pytest.mark.parametrize("name", ["fmul", "dft", "small_ntt"])
@@ -321,8 +348,10 @@ def test_field_ids_match_ntt_fields(name):
     """Each NTT launcher maps field id i to the struct of _ext.NTT_FIELDS[i]."""
     text = (CSRC / f"{name}.cu").read_text()
     ids = dict(re.findall(r"case (\d+):\s*return \w+<ptt::(\w+)>", text))
-    struct = {"bn254_fr": "Fr254", "bls12_377_fr": "Fr377"}
+    struct = {"bn254_fr": "Fr254", "bls12_377_fr": "Fr377",
+              "bls12_381_fr": "Fr381"}
     assert ids == {str(i): struct[f] for i, f in enumerate(_ext.NTT_FIELDS)}
+    assert set(struct) == set(_ext.NTT_FIELDS) == set(_ext.MSM_FIELDS)
 
 
 @pytest.mark.parametrize("name,launchers", [("digits", 1), ("point_ops", 3),
@@ -356,8 +385,8 @@ def _field_op_case(struct, spec, op):
 def test_field_ops_bit_identical(host, struct, spec, op):
     """field.cuh's mont_mul, add_mod, sub_mod against the plain version on
     values < 2p, edges 0, p - 1, p, 2p - 1 included.  BLS12-381 Fr (4r >
-    2^256) has the digit recode's product only: any a < 2^256 times the
-    plain 1, which gives <= r."""
+    2^256) here: the digit recode's product, any a < 2^256 times the plain
+    1, which gives < r (its other ops: test_fr381_ops_bit_identical)."""
     p = spec.modulus
     rng = random.Random(7)
     edge = [0, 1, p - 1, p, p + 1, 2 * p - 2, 2 * p - 1]
@@ -377,6 +406,53 @@ def test_field_ops_bit_identical(host, struct, spec, op):
     np.testing.assert_array_equal(out, _np(plain))
     assert all(v < (p + 1 if struct == "Fr381" else 2 * p)
                for v in mont.words_to_ints(out))
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "sub", "reduce_wide"])
+def test_fr381_ops_bit_identical(host, op):
+    """Fr381 (a canon field: values in [0, r)) mont_mul, add_mod and
+    sub_mod on a, b < r, edges 0, 1, r - 1 and pairs with a + b >= 2^256 - r
+    included, equal to the plain L16 versions word for word and below r;
+    mont_mul also with a < r times any b < 2^256; reduce_wide on words up
+    to 2^256 - 1 equal to mont.reduce_wire."""
+    spec = BLS12_381_FR
+    r, top = spec.modulus, 1 << 256
+    rng = random.Random(381)
+    edge = [0, 1, 2, r - 2, r - 1]
+    high = [(top - r) // 2 + k for k in (0, 1, 7)] + \
+        [r - 1 - rng.randrange(1 << 64) for _ in range(4)]
+    a = edge * len(edge) + high * len(high) + [rng.randrange(r)
+                                               for _ in range(200)]
+    b = [e for e in edge for _ in edge] + [h for h in high for _ in high] + \
+        [rng.randrange(r) for _ in range(200)]
+    if op == "mul":
+        a += [r - 1, 1, rng.randrange(r)] + [rng.randrange(r)
+                                             for _ in range(30)]
+        b += [top - 1, top - 1, 2 * r + 5] + [rng.randrange(top)
+                                              for _ in range(30)]
+    if op == "reduce_wide":
+        a = [0, r - 1, r, 2 * r - 1, 2 * r, top - 1] + \
+            [rng.randrange(top) for _ in range(100)]
+        b = a
+    A, B = _words(spec, a), _words(spec, b)
+    out = np.empty_like(_np(A))
+    if op == "reduce_wide":
+        _call(host.h_reduce_wide_fr381, _np(A), out, len(a))
+    else:
+        _call(host.h_fp, ("i32", ["mul", "add", "sub"].index(op)),
+              ("i32", 3), _np(A), _np(B), out, len(a))
+    plain = {"mul": mont.mul, "add": mont.add, "sub": mont.sub,
+             "reduce_wide": lambda s, x, _: mont.reduce_wire(s, x)}[op](
+                 spec, A, B)
+    np.testing.assert_array_equal(out, _np(plain))
+    got = mont.words_to_ints(out)
+    assert all(v < r for v in got)
+    R = mont.radix(spec)
+    want = {"mul": [x * y * pow(R, -1, r) % r for x, y in zip(a, b)],
+            "add": [(x + y) % r for x, y in zip(a, b)],
+            "sub": [(x - y) % r for x, y in zip(a, b)],
+            "reduce_wide": [x % r for x in a]}[op]
+    assert got == want
 
 
 def _point_ops_case(host, curve):
@@ -516,13 +592,16 @@ def test_weighted_scan_bit_identical_bls(host, curve):
 @NTT_FIELDS
 def test_fmul_bit_identical(host, fr):
     """fmul.cu's body against the plain version: a, b < 2r give < 2r (and
-    canonical with canonical_out); a < R times the plain 1 gives <= r."""
+    canonical with canonical_out); a < R times the plain 1 gives <= r.  For
+    BLS12-381 Fr (values in [0, r)): a, b < r give < r."""
     r = fr.modulus
+    canon = mont.canon(fr)
     field = ("i32", _ext.NTT_FIELDS.index(fr.name))
     rng = random.Random(21)
-    edge = [0, 1, r - 1, r, r + 1, 2 * r - 1]
-    a = edge * len(edge) + [rng.randrange(2 * r) for _ in range(100)]
-    b = [e for e in edge for _ in edge] + [rng.randrange(2 * r)
+    edge = [0, 1, r - 1] if canon else [0, 1, r - 1, r, r + 1, 2 * r - 1]
+    hi = r if canon else 2 * r
+    a = edge * len(edge) + [rng.randrange(hi) for _ in range(100)]
+    b = [e for e in edge for _ in edge] + [rng.randrange(hi)
                                            for _ in range(100)]
     wide = [(1 << 256) - 1, 2 * r, 5 * r] + [rng.randrange(1 << 256)
                                              for _ in range(30)]
@@ -534,7 +613,8 @@ def test_fmul_bit_identical(host, fr):
               field)
         np.testing.assert_array_equal(
             out.view(np.int32), _np(fmul.fmul_plain(fr, A, B, bool(canon))))
-        limit = r if canon else (r + 1 if bv[0] == 1 else 2 * r)
+        limit = r if canon or mont.canon(fr) else \
+            (r + 1 if bv[0] == 1 else 2 * r)
         assert all(v < limit for v in mont.words_to_ints(out))
 
 
@@ -562,7 +642,7 @@ def test_dft_bit_identical(host, log_k, nb, fr):
               ("i32", _ext.NTT_FIELDS.index(fr.name)))
         want = ntt_fused.dft_apply_fused_plain(fr, x, log_k, mat, bool(canon))
         np.testing.assert_array_equal(out.view(np.int32), _np(want))
-        assert all(v < (r if canon else 2 * r)
+        assert all(v < (r if canon or mont.canon(fr) else 2 * r)
                    for v in mont.words_to_ints(out.reshape(8, -1)))
 
 
@@ -572,14 +652,17 @@ def test_dft_bit_identical(host, log_k, nb, fr):
 def test_small_ntt_bit_identical(host, log_k, pre, fr):
     """small_ntt.cu's body (load with the bit reversal, butterflies, store)
     against the plain version: any words below 2^256 with reduce_in, and
-    words below 2r with the pre-twiddle table (B = 3 of 6 columns, so
-    batch 2), the inverse's scale and the canonical store."""
+    words below 2r (r for BLS12-381 Fr) with the pre-twiddle table (B = 3
+    of 6 columns, so batch 2), the inverse's scale and the canonical
+    store."""
     r = fr.modulus
+    stored = r if mont.canon(fr) else 2 * r       # the stored values' bound
     K, nb, B = 1 << log_k, 6, 3
     rng = random.Random(log_k)
     wide = [rng.randrange(1 << 256) for _ in range(K * nb)]
     wide[:4] = [(1 << 256) - 1, r, 2 * r - 1, 2 * r + 7]
-    lazy = [rng.randrange(2 * r) for _ in range(K * nb)]
+    lazy = [rng.randrange(stored) for _ in range(K * nb)]
+    lazy[:2] = [stored - 1, r - 1]
     tw = ntt_pallas.stage_twiddle_rows(fr, log_k, fr.root_of_unity(log_k))
     table = _words(fr, [rng.randrange(r) for _ in range(K * B)])
     table = table.reshape(8, K, B).contiguous() if pre else None
@@ -596,7 +679,7 @@ def test_small_ntt_bit_identical(host, log_k, pre, fr):
         want = ntt_pallas.small_ntt_batch_plain(fr, x, log_k, tw, table, sc,
                                                 reduce_in, canon)
         np.testing.assert_array_equal(out.view(np.int32), _np(want))
-        assert all(v < (r if canon else 2 * r)
+        assert all(v < (r if canon else stored)
                    for v in mont.words_to_ints(out.reshape(8, -1)))
 
 

@@ -26,7 +26,7 @@ from panda_tpu.runtime import errors as jerrors
 from panda_tpu_torch.curves import config as curves
 from panda_tpu_torch.fields import config as fields
 from panda_tpu_torch.fields import mont
-from panda_tpu_torch.fields.config import BN254_FP, BN254_FR
+from panda_tpu_torch.fields.config import BLS12_381_FR, BN254_FP, BN254_FR
 from panda_tpu_torch.reference.field_ref import F
 from panda_tpu_torch.runtime import errors
 
@@ -105,6 +105,64 @@ def test_canonical_neg_and_domain(spec):
     assert mont.words_to_ints(mont.from_mont(spec, mont.to_mont(spec, plain_w))) == a
     inv = mont.batch_inverse(spec, A)
     assert _plain(spec, inv) == [pow(v, -1, p) if v else 0 for v in a]
+
+
+def test_bls12_381_fr_chained_squarings_stay_exact():
+    """Eight successive squarings of 128 BLS12-381 Fr values, half just
+    below r, against Python big ints, word for word after every step.
+    4r > 2^256 for this field, so a stored value near 2r times another
+    passes R and loses its top: the port keeps this field's values in
+    [0, r) (``mont.canon``), and the canonical words must equal the big
+    ints at every step."""
+    spec = BLS12_381_FR
+    r = spec.modulus
+    rinv = pow(mont.radix(spec), -1, r)
+    rng = random.Random(381)
+    want = [r - 1 - rng.randrange(1 << 128) for _ in range(64)] + \
+        [rng.randrange(r) for _ in range(64)]
+    x = mont.words_tensor(mont.ints_to_words(spec, want))
+    bad, stored = [], []
+    for _ in range(8):
+        x = mont.mul(spec, x, x)
+        want = [v * v * rinv % r for v in want]
+        got = mont.words_to_ints(mont.canonical(spec, x))
+        bad.append(sum(g != w for g, w in zip(got, want)))
+        stored.append(mont.words_to_ints(x) == want)
+    assert bad == [0] * 8, f"wrong of 128 at steps 1-8: {bad}"
+    assert all(stored)
+
+
+def _model(spec, op, a, b):
+    """The exact stored words of mul, add and sub, as big ints: CIOS gives
+    (a b + M p) / R with M = -a b p^-1 mod R; the [0, 2p) fields stop
+    there and reduce add/sub by 2p, a canon field subtracts p once from
+    the product and reduces add/sub by p."""
+    p, R = spec.modulus, mont.radix(spec)
+    m = p if mont.canon(spec) else 2 * p
+    if op == "mul":
+        t = (a * b + (-a * b * pow(p, -1, R)) % R * p) // R
+        return t - p if mont.canon(spec) and t >= p else t
+    return (a + b) % m if op == "add" else (a - b) % m
+
+
+@pytest.mark.parametrize("spec", fields.ALL_FIELDS, ids=lambda s: s.name)
+def test_stored_words_match_model(spec):
+    """mul, add and sub on every field give the model's words exactly:
+    unchanged for the five fields with 4p < R (inputs below 2p, edges 0,
+    p - 1, p, 2p - 1), and the [0, p) invariant for BLS12-381 Fr (inputs
+    below p, edges 0, 1, p - 1)."""
+    p = spec.modulus
+    hi = p if mont.canon(spec) else 2 * p
+    rng = random.Random(spec.bits)
+    edge = [0, 1, p - 1] + ([] if mont.canon(spec) else [p, 2 * p - 1])
+    a = edge * len(edge) + [rng.randrange(hi) for _ in range(40)]
+    b = [e for e in edge for _ in edge] + [hi - 1 - rng.randrange(1 << 64)
+                                           for _ in range(40)]
+    A, B = (mont.words_tensor(mont.ints_to_words(spec, v)) for v in (a, b))
+    for op, fn in (("mul", mont.mul), ("add", mont.add), ("sub", mont.sub)):
+        got = mont.words_to_ints(fn(spec, A, B))
+        assert got == [_model(spec, op, x, y) for x, y in zip(a, b)], op
+        assert all(v < hi for v in got)
 
 
 def test_reduce_wire_takes_any_256_bit_value():

@@ -194,8 +194,8 @@ def test_plan_matches_jax(log_n, maxk):
 @pytest.mark.parametrize("curve", [BN254, BLS12_377], ids=lambda c: c.name)
 def test_pallas_engine_bytes(monkeypatch, curve):
     """PANDA_NTT_IMPL=pallas runs the radix-2 engine from 2^10 on, with the
-    four-step engine's bytes and the oracle's; below 2^10 the four-step
-    plan runs."""
+    four-step engine's bytes and the oracle's; below 2^10 the stagewise
+    engine runs (no plan; its twiddle tables), as in the JAX package."""
     fr = curve.fr
     gm = PandaManager.init_all(0, InitUnitType.NTT, curve=curve,
                                device="cpu")
@@ -214,25 +214,25 @@ def test_pallas_engine_bytes(monkeypatch, curve):
     monkeypatch.setenv("PANDA_NTT_IMPL", "pallas")
     data, _ = _raw_words(fr, 1 << 9, 9)
     api.ntt(gm, data, 9)
-    assert {k[0] for k in gm.ntt_tables(9)._plans} == {"mxu"}
+    assert gm.ntt_tables(9)._plans == {}
+    assert {k[0] for k in gm.ntt_tables(9)._tables} == {"bitrev", "w_pows"}
 
 
 def test_engine_choice_errors(monkeypatch):
-    """jnp (the stagewise engine, not ported) raises NotImplementedError;
-    an unknown engine raises ValueError, from the variable or the
-    argument."""
+    """jnp (the stagewise engine) runs, from the variable or the argument,
+    with the four-step engine's bytes; an unknown engine raises ValueError,
+    from the variable or the argument."""
     x = mont.bytes_to_tensor(FR, _raw_words(FR, 1 << 10, 1)[0])
     tables = ntt_ops.make_tables(FR, 10)
+    want = ntt_ops.run_ntt(FR, x, tables, impl="mxu")
     monkeypatch.setenv("PANDA_NTT_IMPL", "jnp")
-    with pytest.raises(NotImplementedError, match="stagewise"):
-        ntt_ops.run_ntt(FR, x, tables)
+    assert torch.equal(ntt_ops.run_ntt(FR, x, tables), want)
     monkeypatch.setenv("PANDA_NTT_IMPL", "radix4")
     with pytest.raises(ValueError):
         ntt_ops.run_ntt(FR, x, tables)
     with pytest.raises(ValueError):
         ntt_ops.run_ntt(FR, x, tables, impl="fft")
-    with pytest.raises(NotImplementedError):
-        ntt_ops.run_ntt(FR, x, tables, impl="jnp")
+    assert torch.equal(ntt_ops.run_ntt(FR, x, tables, impl="jnp"), want)
 
 
 def test_bls12_377_byte_api_matches_jax():
