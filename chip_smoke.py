@@ -7,20 +7,22 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
 2. build the nine CUDA kernels from panda_tpu_torch/csrc, in parallel,
-   and log each kernel entry's registers and spills (ptxas -v), each
+   and log each kernel entry's registers and spills (the build's ptxas -v
+   reports), each
    template instantiation by its curve or field, the BN254 ones beside
    their registers from before the kernels took a curve;
 3. each kernel against its plain PyTorch version on the card, at its main
    path's shapes: the five MSM kernels at n = 2^16 points (c = 13, W = 20,
    D = 4096) and at n = 2^20 (c = 16, W = 16, D = 32768) for BN254, and
    for BLS12-377 and BLS12-381 (12-word coordinates, c from the scalar
-   field's bits, the same geometry) at 2^16 and, for digits, hist and
-   phase A, at 2^20 (where phase A is also timed with its indices cut
-   below n / 8, the bases' table in L2, a measurement only): exact
-   equality
-   for the digits and the histogram, point equality for the point ops,
-   phase A (through the bucket tables it yields, its keys and tails) and
-   the weighted scan; fmul at (8, 2^20), the DFT at K = 32, nb = 2^15 (the
+   field's bits, the same geometry) at 2^16 and, for digits, hist, phase
+   A and the weighted reduction, at 2^20 (where phase A is also timed with
+   its indices cut below n / 8, the bases' table in L2, a measurement
+   only): exact equality for the digits, the
+   histogram and phase A (keys, tails, and emissions where a run ended;
+   its bucket tables point-equal), point equality for the point ops and
+   the weighted reduction (wscan's two launches against the plain
+   decomposition, timed level by level); fmul at (8, 2^20), the DFT at K = 32, nb = 2^15 (the
    four-step 2^20 NTT's passes), forward and with the inverse's scale and
    the canonical pass, and at K = 4, nb = 2^20 (the 2^22 NTT's leaf), and
    the radix-2 pass small_ntt at K = 256, nb = 2^12 with its T1 table and
@@ -81,7 +83,8 @@ Phases, each of which raises on failure (the exit code is then non-zero):
 
 The second-to-last line is a JSON object with one entry per kernel (the
 four curve-templated MSM kernels with a record for each curve, the three
-NTT kernels with one for each scalar field); the last line is
+NTT kernels with one for each scalar field; wscan's "ms" is a weighted
+reduction's two launches together); the last line is
 {"ok": true, "device": {...}}.  Inputs come from fixed seeds.
 """
 
@@ -124,42 +127,10 @@ def host_cpu_model() -> str:
 
 def ptxas_usage() -> dict:
     """Registers, stack frame and spill bytes of every kernel entry, from
-    ``nvcc -Xptxas=-v`` on each source with the build's flags (a cubin
-    under build/, all sources at once).  Returns {source: [(entry,
-    registers, stack, spill stores, spill loads)]}."""
-    import re
-    from concurrent.futures import ThreadPoolExecutor
+    the build's ``ptxas -v`` reports (build first).  Returns {source:
+    [(entry, registers, stack, spill stores, spill loads)]}."""
     from panda_tpu_torch.ops import _ext
-    out_dir = _ext.BUILD / "ptxas"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    flags = [f for f in _ext.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
-                                                      "-fPIC")]
-
-    def one(name):
-        res = subprocess.run(
-            [_ext.nvcc(), *flags, "-cubin", "-Xptxas=-v", "-o",
-             str(out_dir / f"{name}.cubin"), str(_ext.CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc -Xptxas=-v failed for {name}.cu:\n"
-                               f"{res.stderr}")
-        rows, entry, frame = [], None, (0, 0, 0)
-        for line in res.stderr.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                entry = m.group(1)
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
-                          r" (\d+) bytes spill loads", line)
-            if m:
-                frame = tuple(int(v) for v in m.groups())
-            m = re.search(r"Used (\d+) registers", line)
-            if m and entry:
-                rows.append((entry, int(m.group(1)), *frame))
-                entry, frame = None, (0, 0, 0)
-        return name, rows
-
-    with ThreadPoolExecutor(len(_ext.KERNELS)) as ex:
-        return dict(ex.map(one, _ext.KERNELS))
+    return {name: _ext.ptxas_rows(name) for name in _ext.KERNELS}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -240,10 +211,21 @@ class DeviceTimes:
     RETRIES = 2
 
     def __init__(self):
-        self.jobs = []
+        self.jobs, self.sums = [], []
 
     def add(self, fn, reps: int, names, out: dict) -> None:
+        """Queue ``reps`` calls of ``fn``, one launch of ``names`` each."""
         self.jobs.append((fn, reps, names, out))
+
+    def add_sum(self, parts, reps: int, names, out: dict) -> None:
+        """A call of several launches of different sizes: ``parts`` holds
+        one callable a launch, on that launch's own inputs.  Each part is
+        its own batch, and "ms" is the sum of the parts' medians, the device
+        ms a call ("parts_ms" each part's)."""
+        rows = [{} for _ in parts]
+        for fn, row in zip(parts, rows):
+            self.add(fn, reps, names, row)
+        self.sums.append((out, rows))
 
     def take(self) -> None:
         def batch(fn, reps):
@@ -255,16 +237,17 @@ class DeviceTimes:
         pending = list(enumerate(self.jobs))
         for attempt in range(self.RETRIES + 1):
             jobs = []
-            for i, (fn, reps, names, out) in pending:
+            for i, (fn, reps, *_) in pending:
                 jobs += [(f"chip_smoke warm-up {i}", fn),
                          (f"chip_smoke batch {i}", batch(fn, reps))]
             _, events, ranges = profile_ranges(jobs)
             lost = []
-            for i, (fn, reps, names, out) in pending:
+            for i, job in pending:
+                fn, reps, names, out = job
                 us = kernel_records(events, names,
                                     ranges[f"chip_smoke batch {i}"])
                 if not us:
-                    lost.append((i, (fn, reps, names, out)))
+                    lost.append((i, job))
                     continue
                 out["ms"] = statistics.median(us) / 1e3
                 out["recorded"] = f"{len(us)} of {reps}"
@@ -280,7 +263,11 @@ class DeviceTimes:
             raise AssertionError(f"the profiler recorded no launch of "
                                  f"{[j[2] for _, j in pending]} in "
                                  f"{self.RETRIES + 1} sessions")
-        self.jobs = []
+        for out, rows in self.sums:
+            out["ms"] = sum(r["ms"] for r in rows)
+            out["parts_ms"] = [r["ms"] for r in rows]
+            out["recorded"] = " + ".join(r["recorded"] for r in rows)
+        self.jobs, self.sums = [], []
 
 
 def word_err(a, b) -> int:
@@ -350,11 +337,12 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
                   through_phase_a: bool = False) -> dict:
     """Phase 3: each MSM kernel of ``curve`` against its plain version at
     the main-path shapes for n points (with ``through_phase_a``, digits,
-    hist and phase A only, and the point ops' and wscan's bounds at these
-    shapes without a launch).  Returns {kernel: {max_abs_err, batch_ms (CUDA
-    events around a batch), plain_ms (None unless ``plain_times``),
-    bound_ms, bound_by, library_ms}}; ``timer`` fills in "ms", the device
-    ms a launch, when it takes its batches.  Bounds count L = 8 or 12 words
+    hist, phase A and the weighted reduction only, and the point ops' bound
+    at these shapes without a launch).  Returns {kernel: {max_abs_err,
+    batch_ms (CUDA events around a batch), plain_ms (None unless
+    ``plain_times``), bound_ms, bound_by, library_ms}}; ``timer`` fills in
+    "ms", the device ms a launch (for wscan, the sum of its levels'), when
+    it takes its batches.  Bounds count L = 8 or 12 words
     a coordinate (fe bytes a field element, cios_imads(L) a multiply); the
     digits' one multiply is over the 8-word scalar field."""
     import torch
@@ -372,18 +360,25 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
     c = msm.window_bits((n - 1).bit_length(), bits=curve.fr.bits)
     W = msm.signed_window_count(curve.fr.bits, c)
     D = 1 << (c - 1)
-    m = msm.default_lanes(n, W)
+    wave = phase_a.resident_threads(curve, device)
+    m = msm.default_lanes(n, W, wave)
     tag = f"[kernels {curve.name} 2^{n.bit_length() - 1}]"
-    log(f"{tag} n={n} c={c} W={W} D={D} lanes={m} L={L}")
+    log(f"{tag} n={n} c={c} W={W} D={D} lanes={m} L={L}; resident threads: "
+        f"phase A {wave}, wscan {reduce.wscan_threads(curve, device)}")
     bases, scalars, _ = pool_inputs(curve, n, 7, oracle=False)
     gm = PandaManager.new(0, curve, device=device)
     px, py = gm.ingest_bases(bases)
+    pts = phase_a.point_major(px, py)
     s = gm.ingest_scalars(scalars)
 
-    def timed(fn, reps, names):
-        """A kernel call's batch ms now; its device ms a launch queued."""
+    def timed(fn, reps, names, parts=None):
+        """A kernel call's batch ms now; its device ms a launch (a call,
+        summed over ``parts``, one callable a launch) queued."""
         out = {"batch_ms": cuda_ms(fn, reps)}
-        timer.add(fn, reps, names, out)
+        if parts:
+            timer.add_sum(parts, reps, names, out)
+        else:
+            timer.add(fn, reps, names, out)
         return out
 
     def plain_ms(fn, reps):
@@ -424,59 +419,83 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
            torch.equal(kh, ph), bound(W * n * 4 + W * D * 4, 0, IMAD_PER_S),
            lib)
 
-    # 3. phase A, through the bucket tables it yields (its emissions are
-    #    defined where a run ended); the work this data needs is one mixed
-    #    add per entry with a digit in 1..D, and a stored sum per run end
+    # 3. phase A: exact keys and tails, exact emissions where a run ended,
+    #    and the bucket tables it yields; the work this data needs is one
+    #    mixed add per entry with a digit in 1..D, and a stored sum per run
+    #    end
     st = msm.sorted_streams(km, kn, c, m)
     live = int(((st.keys >= 1) & (st.keys <= D)).sum().item())
     P = st.keys.numel()
-    ka = phase_a.scan(curve, st.keys, st.sidx, px, py, D + 1)
+    ka = phase_a.scan(curve, st.keys, st.sidx, px, py, D + 1, pts)
     pa = phase_a.scan_plain(curve, st.keys, st.sidx, px, py, D + 1)
+    ended = pa[0] != D + 1
     kb = msm.assemble_buckets(curve, st, *ka)
     pb = msm.assemble_buckets(curve, st, *pa)
-    ok = bool(cp.eq(curve, kb, pb).all()) and torch.equal(ka[0], pa[0]) \
-        and torch.equal(ka[2], pa[2])
-    err = max(word_err(a, b) for a, b in zip(kb, pb))
-    runs = int((ka[0] != D + 1).sum().item())
+    ok = torch.equal(ka[0], pa[0]) and torch.equal(ka[2], pa[2]) and all(
+        torch.equal(a, b) for a, b in zip(ka[3], pa[3])) and all(
+        torch.equal(a[:, ended], b[:, ended]) for a, b in zip(ka[1], pa[1])) \
+        and bool(cp.eq(curve, kb, pb).all())
+    err = max(word_err(a, b) for a, b in zip(
+        (*kb, *ka[3], *(t[:, ended] for t in ka[1])),
+        (*pb, *pa[3], *(t[:, ended] for t in pa[1]))))
+    runs = int(ended.sum().item())
     log(f"{tag} phase_a: {W} windows x {m} lanes x {st.keys.shape[1]} steps "
         f"in one launch; {live} mixed adds, {runs} run sums stored")
     record("phase_a", err,
            timed(lambda: phase_a.scan(curve, st.keys, st.sidx, px, py,
-                                      D + 1), 5, KERNEL_NAMES["phase_a"]),
+                                      D + 1, pts), 5, KERNEL_NAMES["phase_a"]),
            plain_ms(lambda: phase_a.scan_plain(curve, st.keys, st.sidx, px,
                                                py, D + 1), 1), ok,
            bound(P * 12 + px.shape[1] * 2 * fe + runs * 3 * fe +
                  W * m * (4 + 3 * fe), imad(11 * live), IMAD_PER_S))
     if n >= 1 << 20:
-        # a measurement only: the same launch with every point index cut
+        # measurements only: the same launch with every point index cut
         # below n / 8, so the bases' table (2 x 4 or 6 MiB) sits in the
-        # 50 MB L2; what it saves is what the gather from the full table
-        # costs
+        # 50 MB L2 (what it saves is what is left of the gather from the
+        # full table)
         cut = n // 8 - 1
         low = torch.where(st.sidx < 0, (st.sidx & cut) | -(1 << 31),
                           st.sidx & cut)
         scan_l2 = lambda: phase_a.scan(curve, st.keys, low, px, py,  # noqa
-                                       D + 1)
+                                       D + 1, pts)
         res["phase_a_l2"] = {**res["phase_a"],
                              "batch_ms": cuda_ms(scan_l2, 5),
                              "table_bytes": 2 * fe * (cut + 1)}
         timer.add(scan_l2, 5, KERNEL_NAMES["phase_a"], res["phase_a_l2"])
-    # bounds of the point ops (padd on the bucket tables, (L, W, D): 6 + 3
-    # coordinates of fe bytes and 12 multiplies an element) and of wscan
-    # (S steps x N columns, as weighted_window_sum splits the tables)
+
+    # 4. the weighted reduction of the bucket tables (its plan's launches
+    #    against the plain decomposition, point-equal); the bound counts the
+    #    function's work, two complete adds a bucket and the tables read
+    #    once, not the combine's extra adds and doublings; each level is
+    #    timed on its own inputs and a call's device ms is their sum
     N = W * D
-    lanes, steps = reduce.lane_split(W, D)
+    plan = reduce.wscan_plan(W, D, reduce.wscan_threads(curve, device))
+    wscan_bound = bound(3 * fe * N + 3 * fe * W, imad(24 * N), IMAD_PER_S)
+    kr = reduce.weighted_window_sum(curve, kb)
+    pr = reduce.weighted_window_sum_plain(curve, kb)
+    log(f"{tag} wscan: {len(plan)} launches {plan}")
+    x, p, levels = ProjPoint(*(a.contiguous() for a in kb)), None, []
+    for lv in plan:
+        levels.append(lambda lv=lv, x=x, p=p: reduce.wscan_level(
+            curve, lv, x, p))
+        p, x = levels[-1]()
+    # (projective representatives differ: max_abs_err of the affine words)
+    record("wscan", max(word_err(a, b) for a, b in zip(
+        cp.to_affine(curve, kr), cp.to_affine(curve, pr))),
+           timed(lambda: reduce.weighted_window_sum(curve, kb), 10,
+                 KERNEL_NAMES["wscan"], levels),
+           plain_ms(lambda: reduce.weighted_window_sum_plain(curve, kb), 1),
+           bool(cp.eq(curve, kr, pr).all()), wscan_bound)
+    # bound of the point ops: padd on the bucket tables, (L, W, D): 6 + 3
+    # coordinates of fe bytes and 12 multiplies an element
     padd_bound = bound(9 * fe * N, imad(12 * N), IMAD_PER_S)
-    wscan_bound = bound(3 * fe * steps * W * lanes + 6 * fe * W * lanes,
-                        imad(24 * steps * W * lanes), IMAD_PER_S)
     if through_phase_a:
-        res["point_ops"], res["wscan"] = dict(padd_bound), dict(wscan_bound)
-        log(f"{tag} bounds only (no launch at this size): padd on {N} "
-            f"elements {padd_bound}, wscan {steps} steps x {W * lanes} "
-            f"columns {wscan_bound}")
+        res["point_ops"] = dict(padd_bound)
+        log(f"{tag} point ops: bound only (no launch at this size), padd on "
+            f"{N} elements {padd_bound}")
         return res
 
-    # 4. point ops on the bucket tables' shape (L, W, D): the interior +
+    # 5. point ops on the bucket tables' shape (L, W, D): the interior +
     #    tail add, a mixed add of bases, a doubling
     q = ProjPoint(*(a.flip(-1).contiguous() for a in kb))
     idx = torch.arange(W * D, device=device).reshape(W, D) % px.shape[1]
@@ -502,21 +521,6 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
     res["point_ops_variants"] = {"kernel_ms": kms, "plain_ms": pms,
                                  "bounds": bnds}
     record("point_ops", max(errs), kms[0], pms[0], all(oks), bnds[0])
-
-    # 5. weighted scan on the bucket tables, split as weighted_window_sum does
-    cols = ProjPoint(*(a.reshape(L, W, lanes, steps).permute(0, 3, 1, 2)
-                       .reshape(L, steps, W * lanes).contiguous()
-                       for a in kb))
-    kr, kw = point_kernels.weighted_scan(curve, cols)
-    pr, pw = point_kernels.weighted_scan_plain(curve, cols)
-    ok = bool(cp.eq(curve, kr, pr).all()) and bool(cp.eq(curve, kw, pw).all())
-    err = max(word_err(a, b) for a, b in zip((*kr, *kw), (*pr, *pw)))
-    log(f"{tag} wscan: {steps} steps x {W * lanes} columns")
-    record("wscan", err,
-           timed(lambda: point_kernels.weighted_scan(curve, cols), 10,
-                 KERNEL_NAMES["wscan"]),
-           plain_ms(lambda: point_kernels.weighted_scan_plain(curve, cols), 1),
-           ok, wscan_bound)
     return res
 
 
@@ -900,10 +904,11 @@ def stage_breakdown(curve, sl: dict, reps: int) -> dict:
     from panda_tpu_torch.ops import reduce as red
     gm, log_n, n = sl["gm"], sl["log_n"], sl["n"]
     px, py = gm.d_bases[0]
+    pts = gm.point_major(0)
     c = msm.window_bits(log_n, bits=curve.fr.bits)
     W = msm.signed_window_count(curve.fr.bits, c)
     wg = msm._window_group_size(n, W)
-    m = msm.default_lanes(n, wg)
+    m = msm.default_lanes(n, wg, phase_a.resident_threads(curve, gm.device))
     if W % wg:
         raise AssertionError("stage breakdown: padded window group")
     rows = {k: [] for k in STAGES}
@@ -927,7 +932,7 @@ def stage_breakdown(curve, sl: dict, reps: int) -> dict:
             st = timed(STAGES[3], msm.sorted_streams, mags[g:g + wg],
                        negs[g:g + wg], c, m)
             em = timed(STAGES[4], phase_a.scan, curve, st.keys, st.sidx, px,
-                       py, st.D + 1)
+                       py, st.D + 1, pts)
             b = timed(STAGES[5], msm.assemble_buckets, curve, st, *em)
             parts.append(timed(STAGES[6], red.weighted_window_sum, curve, b))
         blob = timed(STAGES[7], lambda: gm.format_affine_result(
@@ -1406,13 +1411,17 @@ STAGEWISE_KERNELS = ("fmul",)
 PROBE_KERNELS = ("dg3",)
 
 
-# Registers a thread of each BN254 kernel entry from before the MSM kernels
-# were templated on the curve (ptxas -v, sm_90a; no stack, no spills): the
-# BN254 instantiations must compile to the same.
+# Registers a thread of each BN254 kernel entry (ptxas -v, sm_90a; no
+# stack, no spills): digits, hist and the point ops as before the MSM
+# kernels were templated on the curve; phase A and wscan as redesigned for
+# the H100 (phase A's cp.async ring at launch bounds 128 x 4; the
+# two-level weighted reduction at 128 x 2, without the overlapped scaling
+# that the 12-word curves keep, where it was 128 registers a thread as one
+# column a thread).
 BN254_REGISTERS = {"digits_kernel": 32, "hist_kernel": 16,
-                       "phase_a_kernel": 128, "padd_kernel": 96,
-                       "pmadd_kernel": 96, "pdbl_kernel": 64,
-                       "wscan_kernel": 128}
+                   "phase_a_kernel": 128, "padd_kernel": 96,
+                   "pmadd_kernel": 96, "pdbl_kernel": 64,
+                   "wscan_kernel": 253}
 # The same for the NTT kernels' BN254 Fr and BLS12-377 Fr instantiations
 # from before they took BLS12-381 Fr.
 NTT_REGISTERS = {"fmul_kernel": {"Fr254": 31, "Fr377": 32},
@@ -1457,8 +1466,8 @@ def bn254_register_check(usage: dict) -> list:
             want = NTT_REGISTERS[name].get(tag)
             if want is not None and (regs != want or stack or st or ld):
                 differ.append((entry_name(e), regs, stack, st, ld))
-    log("[build] BN254 instantiations against their registers before the "
-        f"curve templates {BN254_REGISTERS}, and the BN254 Fr and BLS12-377 "
+    log("[build] BN254 instantiations against their registers "
+        f"{BN254_REGISTERS}, and the BN254 Fr and BLS12-377 "
         f"Fr NTT instantiations against theirs before BLS12-381 Fr "
         f"{NTT_REGISTERS}: "
         + ("all equal, no stack, no spills" if not differ
@@ -1466,13 +1475,19 @@ def bn254_register_check(usage: dict) -> list:
     return differ
 
 
+# Launches of one call of a kernel library's function on the MSM path where
+# it is more than one: the weighted reduction's two levels.
+CALL_LAUNCHES = {"wscan": 2}
+
+
 def gap_ranking(busy: list, call_bounds: dict) -> list:
     """Per call at 2^20 (the profiled MSM call of each curve and each
     engine's BN254 NTT call; ``call_bounds`` maps its label to each
-    kernel's bound a launch at its 2^20 shapes): each kernel's launches x
-    (device ms a launch - its bound), largest first: where kernel work
-    gains the most.  A kernel whose mean launch is shorter than that bound
-    launches at smaller shapes (the point ops' scans) and is left out."""
+    kernel's bound at its 2^20 shapes, a launch or, for CALL_LAUNCHES, a
+    call of its launches): each kernel's device ms minus calls x its bound,
+    largest first: where kernel work gains the most.  A kernel whose mean
+    call is shorter than that bound runs at smaller shapes (the point ops'
+    scans) and is left out."""
     rows = []
     for b in busy:
         bounds = call_bounds.get(b["label"])
@@ -1481,19 +1496,25 @@ def gap_ranking(busy: list, call_bounds: dict) -> list:
         for k, v in b["per_kernel"].items():
             if not v["recorded"]:
                 continue
-            per_launch = v["device_ms"] / v["recorded"]
-            if per_launch < bounds[k]:
+            if k in CALL_LAUNCHES and v["recorded"] < v["launches"]:
+                # its launches differ in size: only a complete record adds
+                log(f"[ranking] {k} ({b['label']}): {v['recorded']} of "
+                    f"{v['launches']} launches recorded, not ranked")
+                continue
+            per_call = v["device_ms"] / v["recorded"] * CALL_LAUNCHES.get(k, 1)
+            calls = v["launches"] / CALL_LAUNCHES.get(k, 1)
+            if per_call < bounds[k]:
                 continue
             rows.append({"call": b["label"], "kernel": k,
-                         "launches": v["launches"], "device_ms_a_launch":
-                         per_launch, "gap_ms": v["launches"] *
-                         (per_launch - bounds[k])})
+                         "launches": v["launches"], "device_ms_a_call":
+                         per_call, "gap_ms": calls * (per_call - bounds[k])})
     rows.sort(key=lambda r: -r["gap_ms"])
-    log("[ranking] per call at 2^20, launches x (device ms - bound); dg3 is "
-        "on no path of the system and is not ranked: " +
-        "; ".join(f"{r['kernel']} ({r['call']}) {r['launches']} x "
-                  f"{r['device_ms_a_launch']:.4f} ms, gap {r['gap_ms']:.3f} ms"
-                  for r in rows))
+    log("[ranking] per call at 2^20, calls x (device ms a call - bound), a "
+        "call one launch but for wscan's two levels; dg3 is on no path of "
+        "the system and is not ranked: " +
+        "; ".join(f"{r['kernel']} ({r['call']}) {r['launches']} launches, "
+                  f"{r['device_ms_a_call']:.4f} ms a call, gap "
+                  f"{r['gap_ms']:.3f} ms" for r in rows))
     return rows
 
 
@@ -1766,8 +1787,9 @@ def main() -> int:
                 by_curve[cv.name]["ms_2_20_table_in_l2"] = \
                     r["phase_a_l2"]["ms"]
         res[k] = dict(res[k], by_curve=by_curve)
+        unit = "call of its launches" if k in CALL_LAUNCHES else "launch"
         log(f"[kernels by curve] {k}: " + "; ".join(
-            f"{c} {v['ms']:.4f} ms a launch (bound {v['bound_ms']:.4f}, "
+            f"{c} {v['ms']:.4f} ms a {unit} (bound {v['bound_ms']:.4f}, "
             f"plain {v['plain_ms']}), {v['launches']} launches, ptxas "
             f"{[row[1:] for row in v['ptxas']]}"
             + (f", 2^20 {v['ms_2_20']:.4f} ms" if "ms_2_20" in v else "")

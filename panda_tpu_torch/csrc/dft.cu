@@ -53,12 +53,6 @@
 #include <vector>
 #endif
 
-// The tiling is derived on the host (the launcher) and on the card alike.
-#if defined(__CUDACC__)
-#define PT_HD __host__ __device__ __forceinline__
-#else
-#define PT_HD inline
-#endif
 
 namespace ptt {
 

@@ -41,8 +41,10 @@
 
 #if defined(__CUDACC__)
 #define PT_FN __device__ __forceinline__
+#define PT_HD __host__ __device__ __forceinline__
 #else
 #define PT_FN inline
+#define PT_HD inline
 #endif
 
 namespace ptt {
@@ -715,4 +717,25 @@ extern "C" const char* ptt_error_string(int e) {
 }
 #define PTT_LAUNCH_DIMS(n, threads) \
   (unsigned)(((n) + (threads)-1) / (threads)), (threads)
+
+// Threads of `kernel`, in blocks of `threads` with `smem` bytes of dynamic
+// shared memory each, resident at once on the current device (its SMs times
+// the blocks an SM that the kernel's registers and shared memory allow),
+// into *out; returns a CUDA error code.
+template <class K>
+int ptt_resident(K kernel, int threads, size_t smem, int* out) {
+  int dev = 0, sms = 0, blocks = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, smem);
+  *out = sms * blocks * threads;
+  return (int)e;
+}
 #endif

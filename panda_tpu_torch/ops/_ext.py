@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain ``extern "C"`` interface and loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds).  The build runs
-at first use, into ``build/panda_tpu_torch/`` at the repository root, keyed
-on a hash of the sources and flags; nothing is built when the package is
-imported.
+``ctypes`` (no PyTorch headers: a build takes seconds, up to ~3 minutes for
+the point kernels of phase_a.cu and wscan.cu).  The build runs at first use,
+into ``build/panda_tpu_torch/`` at the repository root, keyed on a hash of
+the sources and flags, and keeps ptxas's report beside each library;
+nothing is built when the package is imported.
 
 Every launcher takes device pointers, sizes and the stream, launches on
 ``torch.cuda.current_stream()``, allocates nothing and returns
@@ -15,9 +16,11 @@ the launch in :data:`launches`.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -31,7 +34,7 @@ BUILD = Path(__file__).resolve().parents[2] / "build" / "panda_tpu_torch"
 KERNELS = ("digits", "hist", "phase_a", "point_ops", "wscan", "fmul", "dft",
            "small_ntt", "dg3")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 # Kernel launches since the last reset_counts(), by kernel source name.
 launches = {name: 0 for name in KERNELS}
@@ -52,23 +55,50 @@ def nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _lib_path(name: str, defines: tuple = ()) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
     for f in (CSRC / "field.cuh", CSRC / f"{name}.cu"):
         h.update(f.read_bytes())
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _build(name: str) -> Path:
-    out = _lib_path(name)
+def ptxas_log(name: str, defines: tuple = ()) -> Path:
+    """The build's ``ptxas -v`` report of kernel library ``name``: each
+    entry's registers, stack frame and spills."""
+    return _lib_path(name, defines).with_suffix(".ptxas.txt")
+
+
+def ptxas_rows(name: str, defines: tuple = ()) -> list:
+    """(entry, registers, stack, spill stores, spill loads) of each kernel
+    entry in the build's ptxas report (bytes a thread)."""
+    rows, entry, frame = [], None, (0, 0, 0)
+    for line in ptxas_log(name, defines).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                      r" (\d+) bytes spill loads", line)
+        if m:
+            frame = tuple(int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            rows.append((entry, int(m.group(1)), *frame))
+            entry, frame = None, (0, 0, 0)
+    return rows
+
+
+def _build(name: str, defines: tuple = ()) -> Path:
+    out = _lib_path(name, defines)
     if out.exists():
         return out
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *NVCC_FLAGS, *defines, "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
+    ptxas_log(name, defines).write_text(res.stderr)
     os.replace(tmp, out)
     return out
 
@@ -84,13 +114,39 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+def _open(path: Path):
+    lib = ctypes.CDLL(str(path))
+    lib.ptt_error_string.argtypes = [ctypes.c_int]
+    lib.ptt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _load(name: str):
     if name not in _libs:
-        lib = ctypes.CDLL(str(_build(name)))
-        lib.ptt_error_string.argtypes = [ctypes.c_int]
-        lib.ptt_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+        _libs[name] = _open(_build(name))
     return _libs[name]
+
+
+@contextlib.contextmanager
+def variant(name: str, defines: tuple):
+    """Within the block, kernel library ``name`` is its build with the
+    extra nvcc ``defines`` (``-D`` flags: another launch bound, for a
+    measurement); launches count as usual."""
+    lib = _open(_build(name, defines))
+    saved = _libs.get(name), {k: f for k, f in _fns.items() if k[0] == name}
+    for k in saved[1]:
+        del _fns[k]
+    _libs[name] = lib
+    try:
+        yield
+    finally:
+        for k in [k for k in _fns if k[0] == name]:
+            del _fns[k]
+        _fns.update(saved[1])
+        if saved[0] is None:
+            del _libs[name]
+        else:
+            _libs[name] = saved[0]
 
 
 P, I64, I32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
@@ -100,23 +156,43 @@ def _fn(name: str, symbol: str, argtypes):
     key = (name, symbol)
     if key not in _fns:
         f = getattr(_load(name), symbol)
-        f.argtypes = list(argtypes) + [P]          # + stream
+        f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
         _fns[key] = f
     return _fns[key]
 
 
-def launch(name: str, symbol: str, argtypes, args, device: torch.device):
-    """Call launcher ``symbol`` of kernel library ``name`` on ``device``'s
-    current stream; raise if it reports an error; count the launch."""
-    f = _fn(name, symbol, argtypes)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = f(*args, stream)
+def _check(name: str, symbol: str, rc: int) -> None:
     if rc != 0:
         msg = _libs[name].ptt_error_string(rc).decode()
         raise RuntimeError(f"{symbol}: CUDA error {rc}: {msg}")
+
+
+def launch(name: str, symbol: str, argtypes, args, device: torch.device):
+    """Call launcher ``symbol`` of kernel library ``name`` on ``device``'s
+    current stream; raise if it reports an error; count the launch."""
+    f = _fn(name, symbol, list(argtypes) + [P])        # + stream
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = f(*args, stream)
+    _check(name, symbol, rc)
     launches[name] += 1
+
+
+def resident_threads(name: str, symbol: str, kid: int,
+                     device: torch.device) -> int:
+    """Threads of one full wave of kernel library ``name``'s kernel ``kid``
+    (a curve or field id) on ``device``: the device's SMs times the blocks
+    an SM that the build's registers and shared memory allow, as its
+    function ``symbol`` reports them."""
+    f = _fn(name, symbol, [I32, ctypes.POINTER(ctypes.c_int)])
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = f(kid, ctypes.byref(out))
+    _check(name, symbol, rc)
+    if out.value <= 0:
+        raise RuntimeError(f"{symbol}: no block of the kernel fits an SM")
+    return out.value
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

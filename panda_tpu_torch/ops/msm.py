@@ -32,6 +32,7 @@ from ..curves.point import ProjPoint
 from ..fields import mont
 from ..fields.config import FieldSpec
 from ..reference import curve_ref
+from . import _ext
 from . import digits as digits_ops
 from . import hist as hist_ops
 from . import phase_a
@@ -40,18 +41,14 @@ from . import reduce as red
 # Largest n the port runs; beyond it the JAX package chunks the points.
 MAX_N = 1 << 20
 
-# Phase A's geometry on the H100.  One launch runs W_g * m threads, each a
-# chain of S = n / m mixed adds that depend on each other, so the card is
-# filled by threads in flight.  For BN254, csrc/phase_a.cu caps a thread at
-# 128 registers (launch bounds 128 x 4), which keeps 16 warps resident on
-# each of the 132 SMs, 67,584 threads in all.  Every launch gets the least
-# lane count with at least _PHASE_A_THREADS = 2^16 threads (the JAX
-# package's 2^14 was sized on a v5e to fill its limb kernels: 4 warps an SM
-# here), which still fits that one wave: 20 x 3277 (20 steps) at 2^16,
-# 16 x 4096 (256 steps) at 2^20.  The BLS curves' 12-word lanes take up to
-# 255 registers (launch bounds 128 x 2), 33,792 resident threads, so the
-# same 2^16 threads run in two waves.
-_PHASE_A_THREADS = 1 << 16
+# Phase A's geometry.  One launch runs W_g * m threads, each a chain of
+# S = n / m mixed adds that depend on each other, so the card is filled by
+# threads in flight: every launch gets the most lanes that still run in one
+# wave of the kernel's resident threads (phase_a.resident_threads), at most
+# n.  On the H100 (132 SMs; 4 blocks of 128 an SM for BN254, 3 for the BLS
+# curves) BN254 runs 67,584 threads, 20 x 3379 (20 steps) at 2^16 and
+# 16 x 4224 (249 steps) at 2^20; the BLS curves 50,688, 20 x 2534 (26
+# steps) and 16 x 3168 (331 steps).
 
 # Upper bound on W_g * n entries staged by one phase-A launch: 2^24, so all
 # windows of a 2^20 MSM run in one launch.  An entry costs ~108 bytes with
@@ -65,16 +62,16 @@ _PHASE_A_BUDGET = 1 << 24
 _HIST_MIN_D = 512
 
 
-def default_lanes(n: int, windows: int = 1) -> int:
-    """Per-window phase-A lane count: the least m with
-    windows * m >= _PHASE_A_THREADS, at most n."""
-    return max(min(-(-_PHASE_A_THREADS // max(windows, 1)), n), 1)
+def default_lanes(n: int, windows: int, threads: int) -> int:
+    """Per-window phase-A lane count: the most m with windows * m <=
+    ``threads`` (one wave), at most n."""
+    return max(min(threads // max(windows, 1), n), 1)
 
 
 def _cost_model_lanes(n: int, windows: int) -> int:
     """The JAX package's lane rule, which window_bits' cost model keeps:
-    with default_lanes in its place the model would move c at 2^9..2^12
-    and 2^15 (re-deriving the model for the H100 is a ROADMAP item)."""
+    with the H100's lane rule in its place the model would move c
+    (re-deriving the model for the H100 is a ROADMAP item)."""
     target = max(16384 // max(windows, 1), 128)
     return max(min(1 << (target.bit_length() - 1), n), 1)
 
@@ -201,30 +198,33 @@ def assemble_buckets(curve: CurveSpec, st: Streams, ekeys, epts, tkeys,
 
 
 def _bucket_tables(curve: CurveSpec, px, py, digits, signs, c: int,
-                   m: int) -> ProjPoint:
+                   m: int, pts=None) -> ProjPoint:
     """Dense bucket tables B_1..B_D of every window: (L, W, D) coordinates,
     D = 2^(c-1); negative digits enter as the negated point."""
     st = sorted_streams(digits, signs, c, m)
-    return assemble_buckets(
-        curve, st, *phase_a.scan(curve, st.keys, st.sidx, px, py, st.D + 1))
+    return assemble_buckets(curve, st, *phase_a.scan(
+        curve, st.keys, st.sidx, px, py, st.D + 1, pts))
 
 
 def _window_group_size(n: int, W: int) -> int:
     return min(max(_PHASE_A_BUDGET // max(n, 1), 1), W)
 
 
-def window_sums(curve: CurveSpec, px, py, digits, signs,
-                c: int) -> ProjPoint:
+def window_sums(curve: CurveSpec, px, py, digits, signs, c: int,
+                pts=None) -> ProjPoint:
     """Per-window sums G_w as (L, W) coordinates.  Windows run in groups
     of at most _PHASE_A_BUDGET / n, which bounds the staged memory: one
-    group up to 2^20 points."""
+    group up to 2^20 points.  ``pts`` is phase_a.point_major(px, py) if the
+    caller holds it."""
     W, n = digits.shape
     if n > MAX_N:
         raise NotImplementedError(
             f"MSM of {n} > 2^20 points: the point-chunked path is not ported "
             "yet (ROADMAP: the chunked MSM path above 2^20)")
     wg = _window_group_size(n, W)
-    m = default_lanes(n, wg)
+    if pts is None and not _ext.on_cpu("window_sums", px):
+        pts = phase_a.point_major(px, py)          # once for every group
+    m = default_lanes(n, wg, phase_a.resident_threads(curve, px.device))
     parts = []
     for g in range(0, W, wg):
         d, s = digits[g:g + wg], signs[g:g + wg]
@@ -232,18 +232,18 @@ def window_sums(curve: CurveSpec, px, py, digits, signs,
             extra = wg - d.shape[0]
             d = torch.cat([d, d.new_zeros((extra, n))])
             s = torch.cat([s, s.new_zeros((extra, n))])
-        buckets = _bucket_tables(curve, px, py, d, s, c, m)
+        buckets = _bucket_tables(curve, px, py, d, s, c, m, pts)
         parts.append(red.weighted_window_sum(curve, buckets))
     return ProjPoint(*(torch.cat([p[i] for p in parts], dim=1)[:, :W]
                        for i in range(3)))
 
 
 def window_sums_fn(curve: CurveSpec, c: int):
-    """(px, py, scalars) -> window sums (L, W) x3: the device part of the
-    byte-API MSM; the Horner tail runs on the host."""
-    def fn(px, py, scalars):
+    """(px, py, scalars[, pts]) -> window sums (L, W) x3: the device part
+    of the byte-API MSM; the Horner tail runs on the host."""
+    def fn(px, py, scalars, pts=None):
         mags, negs = signed_digit_arrays(curve.fr, scalars, c)
-        return window_sums(curve, px, py, mags, negs, c)
+        return window_sums(curve, px, py, mags, negs, c, pts)
     return fn
 
 

@@ -1,10 +1,9 @@
-"""Elementwise point kernels and the weighted bucket scan.
+"""Elementwise point kernels.
 
-Counterpart of ``panda_tpu/ops/point_pallas.py``:
-
-* ``padd``/``pmadd``/``pdbl`` (``csrc/point_ops.cu``) replace ``_run``
-  behind the TPU's ``padd``/``pmadd``/``pdbl``;
-* ``weighted_scan`` (``csrc/wscan.cu``) replaces ``weighted_scan``.
+Counterpart of ``panda_tpu/ops/point_pallas.py``'s ``padd``/``pmadd``/
+``pdbl`` (``csrc/point_ops.cu`` replaces ``_run`` behind them); its
+``weighted_scan`` is replaced by ``ops/reduce.weighted_window_sum``
+(``csrc/wscan.cu``).
 
 Coordinates are (L, *batch) int32 words, L = ``mont.n_words(curve.fp)``
 (8 for BN254, 12 for the BLS curves); the kernels are built for the three
@@ -64,36 +63,3 @@ def pdbl(curve: CurveSpec, p: ProjPoint) -> ProjPoint:
     if _ext.on_cpu("pdbl", p.x):
         return cp.dbl_plain(curve, p)
     return _run(curve, "ptt_pdbl", list(p), p.x.shape)
-
-
-# ---------------------------------------------------------------------------
-# Weighted bucket scan
-# ---------------------------------------------------------------------------
-
-def weighted_scan_plain(curve: CurveSpec, b: ProjPoint):
-    """Plain version: ``b`` coordinates (L, S, N); reverse loop over S with
-    run += B_s, wsum += run.  Returns (run, wsum) triples of (L, N)."""
-    S, N = b.x.shape[1:]
-    run = cp.identity(curve, (N,), b.x.device)
-    wsum = cp.identity(curve, (N,), b.x.device)
-    for s in range(S - 1, -1, -1):
-        run = cp.add_plain(curve, run, ProjPoint(*(a[:, s] for a in b)))
-        wsum = cp.add_plain(curve, wsum, run)
-    return run, wsum
-
-
-def weighted_scan(curve: CurveSpec, b: ProjPoint):
-    """Reverse weighted scan over the step axis of (L, S, N) bucket
-    coordinates: run = sum_s B_s, wsum = sum_s (s + 1) B_s, each (L, N)."""
-    if _ext.on_cpu("weighted_scan", b.x):
-        return weighted_scan_plain(curve, b)
-    cid = _ext.kernel_field("weighted_scan", curve, _ext.MSM_CURVES)
-    b = ProjPoint(*(a.contiguous() for a in b))
-    _ext.check_cuda("weighted_scan", *b)
-    _ext.check_words("weighted_scan", curve.fp, b.x)
-    L, S, N = b.x.shape
-    outs = [torch.empty((L, N), dtype=torch.int32, device=b.x.device)
-            for _ in range(6)]
-    _ext.launch("wscan", "ptt_weighted_scan", [P] * 9 + [I64, I64, I32],
-                [t.data_ptr() for t in (*b, *outs)] + [N, S, cid], b.x.device)
-    return ProjPoint(*outs[:3]), ProjPoint(*outs[3:])

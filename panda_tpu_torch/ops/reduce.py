@@ -3,20 +3,24 @@
 Counterpart of ``panda_tpu/ops/reduce.py``.  PyTorch runs eagerly, so the
 JAX package's one-add-instance ``fori_loop``/``scan`` bodies become plain
 Python loops; each step is one batched point op (one kernel launch on the
-GPU).  The inner loop of :func:`weighted_window_sum` is the weighted-scan
-kernel (``ops/point_kernels.weighted_scan``, ``csrc/wscan.cu``).
+GPU).  The weighted reduction :func:`weighted_window_sum` runs on the
+device as two launches of ``csrc/wscan.cu`` (segment scans and a block
+combine in shared memory, then the blocks' partial sums); its plain
+version, beside it, is the JAX package's blocked decomposition.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
 from ..curves import point as cp
 from ..curves.config import CurveSpec
 from ..curves.point import ProjPoint
-from . import point_kernels
+from . import _ext
+from ._ext import I32, I64, P
 
 
 def _ceil_log2(n: int) -> int:
@@ -47,13 +51,18 @@ def segmented_prefix_scan(curve: CurveSpec, pts: ProjPoint,
     return pts
 
 
+# ---------------------------------------------------------------------------
+# Weighted reduction: the plain version
+# ---------------------------------------------------------------------------
+
 def suffix_scan(curve: CurveSpec, pts: ProjPoint) -> ProjPoint:
-    """Inclusive suffix sums along the last axis: out[i] = sum_{j>=i} pts[j]."""
+    """Inclusive suffix sums along the last axis: out[i] = sum_{j>=i} pts[j]
+    (plain adds)."""
     n = pts.x.shape[-1]
     idx = torch.arange(n, device=pts.x.device)
     for i in range(_ceil_log2(n)):
         s = 1 << i
-        added = cp.add(curve, pts, _roll(pts, -s))
+        added = cp.add_plain(curve, pts, _roll(pts, -s))
         pts = cp.select(idx < n - s, added, pts)
     return pts
 
@@ -64,31 +73,43 @@ def small_total(curve: CurveSpec, pts: ProjPoint) -> ProjPoint:
 
 
 def dbl_pow2(curve: CurveSpec, pt: ProjPoint, log_k: int) -> ProjPoint:
-    """pt * 2^log_k."""
+    """pt * 2^log_k (plain doublings)."""
     for _ in range(log_k):
-        pt = cp.dbl(curve, pt)
+        pt = cp.dbl_plain(curve, pt)
     return pt
 
 
 def lane_split(batch: int, d: int) -> tuple:
-    """(lanes, steps) of the weighted reduction of ``batch`` tables of d
-    buckets: the JAX package's cost model without its TPU tile constraint."""
+    """(lanes, steps) of the plain weighted reduction of ``batch`` tables of
+    d buckets: the JAX package's cost model without its TPU tile constraint."""
     target = max(8192 // max(batch, 1), 1)
     log_lanes = min(max(target.bit_length() - 1, 0), _ceil_log2(d) // 2 + 3,
                     _ceil_log2(d))
     return 1 << log_lanes, 1 << (_ceil_log2(d) - log_lanes)
 
 
-def weighted_window_sum(curve: CurveSpec, buckets: ProjPoint) -> ProjPoint:
-    """sum_{d>=1} d * B_d for buckets B_1..B_D along the last axis of
-    (L, *batch, D) coordinates; returns (L, *batch).
+def weighted_scan_plain(curve: CurveSpec, b: ProjPoint):
+    """``b`` coordinates (L, S, N); reverse loop over S with run += B_s,
+    wsum += run.  Returns (run, wsum) triples of (L, N): run = sum_s B_s,
+    wsum = sum_s (s + 1) B_s."""
+    S, N = b.x.shape[1:]
+    run = cp.identity(curve, (N,), b.x.device)
+    wsum = cp.identity(curve, (N,), b.x.device)
+    for s in range(S - 1, -1, -1):
+        run = cp.add_plain(curve, run, ProjPoint(*(a[:, s] for a in b)))
+        wsum = cp.add_plain(curve, wsum, run)
+    return run, wsum
 
-    Blocked decomposition d = q S + (r + 1), lane q, step r:
+
+def weighted_window_sum_plain(curve: CurveSpec,
+                              buckets: ProjPoint) -> ProjPoint:
+    """Plain version of :func:`weighted_window_sum`, the JAX package's
+    blocked decomposition d = q S + (r + 1), lane q, step r:
 
         sum_d d B_d = sum_q [ sum_r (r+1) B_{q,r} ]  +  S * sum_q q T_q
 
-    with T_q the per-lane plain sums.  The weighted-scan kernel computes
-    both inner terms in one pass; the lane combine uses the suffix scan."""
+    with T_q the per-lane plain sums: a weighted scan over the steps, then
+    log-depth suffix scans over the lanes and doublings."""
     d = buckets.x.shape[-1]
     lead = tuple(buckets.x.shape[1:-1])
     if d == 1:
@@ -106,11 +127,103 @@ def weighted_window_sum(curve: CurveSpec, buckets: ProjPoint) -> ProjPoint:
     # (L, *lead, lanes*steps) -> (L, steps, batch*lanes): step-major columns
     cols = ProjPoint(*(a.reshape(L, batch, lanes, steps).permute(0, 3, 1, 2)
                        .reshape(L, steps, batch * lanes) for a in buckets))
-    run, wsum = point_kernels.weighted_scan(curve, cols)
+    run, wsum = weighted_scan_plain(curve, cols)
     t = ProjPoint(*(a.reshape((L,) + lead + (lanes,)) for a in run))
     wsum = ProjPoint(*(a.reshape((L,) + lead + (lanes,)) for a in wsum))
     total_w = small_total(curve, wsum)
     if lanes == 1:
         return total_w
     cross = small_total(curve, _last(suffix_scan(curve, t), slice(1, None)))
-    return cp.add(curve, total_w, dbl_pow2(curve, cross, log_steps))
+    return cp.add_plain(curve, total_w, dbl_pow2(curve, cross, log_steps))
+
+
+# ---------------------------------------------------------------------------
+# Weighted reduction on the device
+# ---------------------------------------------------------------------------
+
+# csrc/wscan.cu's geometry: blocks of at most _WSCAN_BLOCK threads (its
+# kThreads); level 0 aims at _WSCAN_THREADS threads.  The threads resident
+# at once come from the kernel's build (ptt_wscan_threads: on the H100,
+# 132 SMs x 2 blocks of 128).
+_WSCAN_BLOCK = 128
+_WSCAN_THREADS = 1 << 16
+
+
+class Level(NamedTuple):
+    """One launch of csrc/wscan.cu: E elements a window in segments of
+    ``seg``, ``threads`` segments a block, ``blocks`` blocks a window."""
+    E: int
+    seg: int
+    threads: int
+    blocks: int
+
+
+def _level(E: int, seg: int) -> Level:
+    segs = -(-E // seg)
+    T = min(_WSCAN_BLOCK, 1 << _ceil_log2(segs))
+    return Level(E, seg, T, -(-segs // T))
+
+
+def wscan_plan(windows: int, d: int, wave: int) -> list:
+    """The launches of :func:`weighted_window_sum` for ``windows`` tables of
+    d buckets on a card that holds ``wave`` threads at once.  Level 0 takes
+    segments of 2^k >= 2 buckets, a thread each: the longest that still
+    give _WSCAN_THREADS threads (2^20 MSM: 16 x 32768 buckets in segments
+    of 8, 65,536 threads in two waves, 32 blocks a window), or, where the
+    tables are too small for that, the shortest that fit one wave (2^16:
+    20 x 4096 buckets in segments of 4).  Level 1 takes segments long
+    enough for one block a window, so it is the last."""
+    full = (windows * d // _WSCAN_THREADS).bit_length() - 1
+    seg = 1 << (full if full >= 1 else
+                max(1, _ceil_log2(-(-windows * d // wave))))
+    levels = [_level(d, seg)]
+    while levels[-1].blocks > 1:
+        E = levels[-1].blocks
+        levels.append(_level(E, 1 << _ceil_log2(-(-E // _WSCAN_BLOCK))))
+    return levels
+
+
+def wscan_threads(curve: CurveSpec, device: torch.device) -> int:
+    """Threads of one full wave of csrc/wscan.cu for ``curve`` on the card
+    ``device``, in blocks of _WSCAN_BLOCK, as the kernel's build allows."""
+    return _ext.resident_threads(
+        "wscan", "ptt_wscan_threads",
+        _ext.kernel_field("weighted_window_sum", curve, _ext.MSM_CURVES),
+        device)
+
+
+def wscan_level(curve: CurveSpec, lv: Level, x: ProjPoint, p):
+    """One launch of csrc/wscan.cu: level ``lv`` over x (L, W, lv.E) and
+    the plain terms p (None at level 0); returns the next level's (p, x),
+    x None after the last level, whose p is the window sums (L, W, 1)."""
+    L, W = x.x.shape[:2]
+    cid = _ext.kernel_field("weighted_window_sum", curve, _ext.MSM_CURVES)
+    out = [torch.empty((L, W, lv.blocks), dtype=torch.int32,
+                       device=x.x.device)
+           for _ in range(6 if lv.blocks > 1 else 3)]
+    ptrs = [a.data_ptr() for a in x]
+    ptrs += [a.data_ptr() for a in p] if p else [None] * 3
+    ptrs += [a.data_ptr() for a in out] + [None] * (6 - len(out))
+    _ext.launch("wscan", "ptt_wscan_level", [P] * 12 + [I64] * 3 + [I32] * 4,
+                ptrs + [W, lv.E, lv.blocks, lv.seg, lv.threads,
+                        int(p is None), cid], x.x.device)
+    return (ProjPoint(*out[:3]),
+            ProjPoint(*out[3:]) if lv.blocks > 1 else None)
+
+
+def weighted_window_sum(curve: CurveSpec, buckets: ProjPoint) -> ProjPoint:
+    """sum_{d>=1} d * B_d for buckets B_1..B_D along the last axis of
+    (L, *batch, D) coordinates; returns (L, *batch).  CPU tensors take
+    :func:`weighted_window_sum_plain`; CUDA tensors the launches of
+    :func:`wscan_plan` for the threads the kernel's build holds at once."""
+    if _ext.on_cpu("weighted_window_sum", buckets.x):
+        return weighted_window_sum_plain(curve, buckets)
+    L, *lead, D = buckets.x.shape
+    W = math.prod(lead)
+    x = ProjPoint(*(a.reshape(L, W, D).contiguous() for a in buckets))
+    _ext.check_cuda("weighted_window_sum", *x)
+    _ext.check_words("weighted_window_sum", curve.fp, x.x)
+    p = None
+    for lv in wscan_plan(W, D, wscan_threads(curve, x.x.device)):
+        p, x = wscan_level(curve, lv, x, p)
+    return ProjPoint(*(a.reshape([L] + lead) for a in p))

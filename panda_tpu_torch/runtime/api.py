@@ -38,13 +38,14 @@ def _check_msm(n_scalars: int, n_bases: int) -> None:
         raise PandaRuntimeError(PandaError.INVALID_CONFIGURATION, "empty MSM")
 
 
-def _msm_run(gm: PandaManager, scalars, bases_xy) -> bytes:
-    """Inputs already on the device; every entry point validates the
-    lengths (``_check_msm``) before any device work."""
+def _msm_run(gm: PandaManager, scalars, bases_xy, pts=None) -> bytes:
+    """Inputs already on the device (``pts``: the bases' point-major table
+    if the session holds it); every entry point validates the lengths
+    (``_check_msm``) before any device work."""
     curve = gm.curve
     c = msm_ops.window_bits(max(scalars.shape[-1] - 1, 1).bit_length(),
                             bits=curve.fr.bits)
-    sums = msm_ops.window_sums_fn(curve, c)(*bases_xy, scalars)
+    sums = msm_ops.window_sums_fn(curve, c)(*bases_xy, scalars, pts)
     return gm.format_affine_result(msm_ops.host_horner(curve, sums, c))
 
 
@@ -66,7 +67,8 @@ def msm_with_cached_bases(gm: PandaManager, scalars_bytes: bytes,
                           bases_index: int = 0) -> bytes:
     bases = _cached(gm.d_bases, bases_index, "bases")
     _check_msm(_count(scalars_bytes, gm.curve.fr.n_bytes), bases[0].shape[-1])
-    return _msm_run(gm, gm.ingest_scalars(scalars_bytes), bases)
+    return _msm_run(gm, gm.ingest_scalars(scalars_bytes), bases,
+                    gm.point_major(bases_index))
 
 
 def msm_with_cached_scalars(gm: PandaManager, bases_bytes: bytes,
@@ -81,7 +83,7 @@ def msm_with_cached_input(gm: PandaManager, scalars_index: int = 0,
     bases = _cached(gm.d_bases, bases_index, "bases")
     scalars = _cached(gm.d_scalars, scalars_index, "scalars")
     _check_msm(scalars.shape[-1], bases[0].shape[-1])
-    return _msm_run(gm, scalars, bases)
+    return _msm_run(gm, scalars, bases, gm.point_major(bases_index))
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,7 @@ import torch
 from ..curves.config import BN254, CURVES, CurveSpec
 from ..fields import mont
 from ..ops import ntt as ntt_ops
+from ..ops import phase_a as phase_a_ops
 from .errors import PandaError, PandaRuntimeError
 
 
@@ -72,6 +73,7 @@ class PandaManager:
     curve: CurveSpec = BN254
     result_coordinate_type: ResultCoordinateType = ResultCoordinateType.JACOBIAN
     d_bases: list = field(default_factory=list)      # (px, py) word tensors
+    _point_major: dict = field(default_factory=dict)
     d_scalars: list = field(default_factory=list)    # (8, n) word tensors
     device: torch.device | None = None
     _ntt_tables: dict = field(default_factory=dict)
@@ -147,6 +149,19 @@ class PandaManager:
         self.d_bases.append(self.ingest_bases(blob))
         return len(self.d_bases) - 1
 
+    def point_major(self, index: int):
+        """Phase A's point-major table of cached base set ``index`` on the
+        card, built at its first use (None on the CPU, whose plain version
+        reads (px, py))."""
+        bases = self.d_bases[index]
+        if bases[0].device.type == "cpu":
+            return None
+        held = self._point_major.get(index)
+        if held is None or held[0] is not bases:
+            held = self._point_major[index] = (
+                bases, phase_a_ops.point_major(*bases))
+        return held[1]
+
     def init_msm_cached_scalars(self, blob: bytes) -> int:
         self._require_init()
         self.d_scalars.append(self.ingest_scalars(blob))
@@ -195,6 +210,7 @@ class PandaManager:
 
     def deinit(self) -> None:
         self.d_bases.clear()
+        self._point_major.clear()
         self.d_scalars.clear()
         self._ntt_tables.clear()
 

@@ -1,0 +1,136 @@
+"""Builds of MSM phase A and of the weighted reduction, built and timed on
+the card.
+
+    python -m panda_tpu_torch.tools.occupancy_sweep
+
+Builds ``csrc/phase_a.cu`` and ``csrc/wscan.cu`` with other ``-D`` flags
+(:data:`BUILDS`: the blocks of 128 threads an SM that the launch bounds ask
+for, phase A's ring depth, the word counts for which the weighted
+reduction overlaps its scaling with its tree), prints each build's
+registers, stack and spills from its ``ptxas -v`` report, and times each
+build at the MSM's 2^16 and 2^20 shapes for each curve: device ms a call
+from CUDA events over a few calls, with the geometry each build's own
+occupancy gives (``phase_a.resident_threads``,
+``reduce.wscan_threads``).  Every build's bucket tables and
+window sums must equal the default build's after affine normalisation.
+The first build of each kernel is the default.  Raises without a GPU.
+"""
+
+from __future__ import annotations
+
+import json
+import random
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from ..curves import point as cp
+from ..curves.config import BLS12_377, BLS12_381, BN254
+from ..fields import mont
+from ..ops import _ext, msm, phase_a, reduce
+from ..reference import curve_ref
+
+BLOCK = 128
+# (kernel, nvcc defines), the default build of each kernel first
+BUILDS = (
+    ("phase_a", ()),
+    ("phase_a", ("-DPTT_PHASE_A_BLOCKS_8=3", "-DPTT_PHASE_A_BLOCKS_12=2")),
+    ("phase_a", ("-DPTT_PHASE_A_RING=2",)),
+    ("phase_a", ("-DPTT_PHASE_A_RING=8",)),
+    ("wscan", ()),
+    ("wscan", ("-DPTT_WSCAN_BLOCKS=3",)),
+    ("wscan", ("-DPTT_WSCAN_BLOCKS=4",)),
+    ("wscan", ("-DPTT_WSCAN_OVERLAP_WORDS=8",)),     # overlap for every curve
+    ("wscan", ("-DPTT_WSCAN_OVERLAP_WORDS=13",)),    # overlap for none
+)
+
+
+def _ms(fn, reps: int) -> float:
+    """Mean device ms a call over ``reps`` calls, after one warm-up."""
+    fn()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _inputs(curve, n: int, device, seed: int = 8):
+    """Bases (L, n) x2 drawn from 256 random points and (8, n) Montgomery
+    scalar words from 256 random scalars."""
+    rng, npr = random.Random(seed), np.random.default_rng(seed)
+    fp, fr = curve.fp, curve.fr
+    pool = [curve_ref.random_point(curve, rng) for _ in range(256)]
+    idx = torch.from_numpy(npr.integers(256, size=n)).to(device)
+    px, py = (mont.words_tensor(mont.ints_to_words(
+        fp, [v * mont.radix(fp) % fp.modulus for v in vals]),
+        device)[:, idx].contiguous() for vals in zip(*pool))
+    s = mont.words_tensor(mont.ints_to_words(
+        fr, [rng.randrange(fr.modulus) for _ in range(256)]), device)
+    return px, py, s[:, torch.from_numpy(
+        npr.integers(256, size=n)).to(device)].contiguous()
+
+
+def main(device=None, sizes=(16, 20)) -> list:
+    """One row a (build, curve, size): the curve's instantiation's
+    registers, stack and spills, its blocks an SM, and device ms a call."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("occupancy_sweep: no CUDA device")
+    device = torch.device(device or "cuda:0")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    with ThreadPoolExecutor(len(BUILDS)) as ex:
+        list(ex.map(lambda b: _ext._build(*b), BUILDS))
+    rows = []
+    for curve in (BN254, BLS12_377, BLS12_381):
+        tag = {"bn254": "Bn254", "bls12_377": "Bls12_377",
+               "bls12_381": "Bls12_381"}[curve.name]
+        for log_n in sizes:
+            n = 1 << log_n
+            px, py, s = _inputs(curve, n, device)
+            pts = phase_a.point_major(px, py)
+            c = msm.window_bits(log_n, bits=curve.fr.bits)
+            mags, negs = msm.signed_digit_arrays(curve.fr, s, c)
+            W = mags.shape[0]
+            want = {}
+            for name, defines in BUILDS:
+                with _ext.variant(name, defines):
+                    if name == "phase_a":
+                        wave = phase_a.resident_threads(curve, device)
+                        st = msm.sorted_streams(
+                            mags, negs, c, msm.default_lanes(n, W, wave))
+                        call = lambda: phase_a.scan(  # noqa: E731
+                            curve, st.keys, st.sidx, px, py, st.D + 1, pts)
+                        got = msm.assemble_buckets(curve, st, *call())
+                        reps = 3
+                    else:
+                        wave = reduce.wscan_threads(curve, device)
+                        call = lambda: reduce.weighted_window_sum(  # noqa
+                            curve, want["phase_a"])
+                        got = call()
+                        reps = 10
+                    ms = _ms(call, reps)
+                want.setdefault(name, got)
+                if not bool(cp.eq(curve, got, want[name]).all()):
+                    raise AssertionError(f"{name} {defines} ({curve.name}, "
+                                         f"2^{log_n}): differs from the "
+                                         "default build")
+                regs = [r[1:] for r in _ext.ptxas_rows(name, defines)
+                        if tag in r[0]]
+                row = {"kernel": name, "defines": list(defines),
+                       "blocks_an_sm": wave / (sms * BLOCK),
+                       "curve": curve.name, "log_n": log_n,
+                       "default": not defines,
+                       "registers_stack_spills": regs, "ms": ms}
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+    return rows
+
+
+if __name__ == "__main__":
+    print(f"[occupancy_sweep] {torch.cuda.get_device_name(0)}" if
+          torch.cuda.is_available() else "", flush=True)
+    main()

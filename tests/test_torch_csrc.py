@@ -28,7 +28,7 @@ from panda_tpu_torch.fields import mont
 from panda_tpu_torch.fields.config import (BLS12_377_FR, BLS12_381_FR,
                                            BN254_FP, BN254_FR)
 from panda_tpu_torch.ops import (_ext, digits, fmul, hist, ntt_fused,
-                                 ntt_pallas, phase_a, point_kernels)
+                                 ntt_pallas, phase_a, reduce)
 from panda_tpu_torch.reference import curve_ref
 from panda_tpu_torch.tools import profile_gather4
 
@@ -162,20 +162,45 @@ template <class C> struct Digits {
       digits_elem<typename C::Fr>(s, mags, negs, j, n, c, W);
   }
 };
+// A launch's lanes on the host, in blocks of T, with a ring R steps deep:
+// each thread runs its lane with the block's ring and a copy policy of its
+// own (csrc/phase_a.cu's host RingCopy, whose copies land when a wait
+// releases their group); the ring starts as 0xA5 filler and keeps the
+// previous block's words.
+template <int R, class C>
+void phase_a_host(In keys, In sidx, In pts, Out ek, Out ex, Out ey, Out ez,
+                  Out tk, Out tx, Out ty, Out tz, int64_t W, int64_t m,
+                  int64_t S, int dead, int T) {
+  std::vector<uint32_t> ring(phase_a_ring_words(R, T, C::Fp::N),
+                             0xA5A5A5A5u);
+  uint32_t* kring = ring.data() + (int64_t)R * T * 2 * C::Fp::N;
+  for (int64_t l = 0; l < W * m; ++l) {
+    RingCopy cp;
+    phase_a_lane<R, C>(keys, sidx, pts, ek, ex, ey, ez, tk, tx, ty, tz, l, m,
+                       S, W * m, (uint32_t)dead, ring.data(), kring,
+                       (int)(l % T), T, cp);
+  }
+}
 template <class C> struct PhaseA {
-  static void run(In keys, In sidx, In px, In py, int64_t n, Out ek, Out ex,
-                  Out ey, Out ez, Out tk, Out tx, Out ty, Out tz, int64_t W,
-                  int64_t m, int64_t S, int dead) {
-    for (int64_t l = 0; l < W * m; ++l)
-      phase_a_lane<C>(keys, sidx, px, py, n, ek, ex, ey, ez, tk, tx, ty, tz,
-                      l, m, S, W * m, (uint32_t)dead);
+  static void run(In keys, In sidx, In pts, Out ek, Out ex, Out ey, Out ez,
+                  Out tk, Out tx, Out ty, Out tz, int64_t W, int64_t m,
+                  int64_t S, int dead, int depth, int T) {
+    switch (depth) {
+#define PTT_RING(R)                                                          \
+  case R:                                                                    \
+    return phase_a_host<R, C>(keys, sidx, pts, ek, ex, ey, ez, tk, tx, ty,   \
+                              tz, W, m, S, dead, T);
+      PTT_RING(1) PTT_RING(2) PTT_RING(4) PTT_RING(8)
+#undef PTT_RING
+    }
   }
 };
 template <class C> struct Wscan {
-  static void run(In bx, In by, In bz, Out rx, Out ry, Out rz, Out wx, Out wy,
-                  Out wz, int64_t N, int64_t S) {
-    for (int64_t c = 0; c < N; ++c)
-      wscan_col<C>(bx, by, bz, rx, ry, rz, wx, wy, wz, c, N, S);
+  static void run(In xx, In xy, In xz, In px, In py, In pz, Out Px, Out Py,
+                  Out Pz, Out Xx, Out Xy, Out Xz, int64_t W, int64_t E,
+                  int64_t NB, int seg, int T, int base) {
+    wscan_level_host<C>({xx, xy, xz}, {px, py, pz}, {Px, Py, Pz},
+                        {Xx, Xy, Xz}, W, E, NB, seg, T, base);
   }
 };
 
@@ -211,15 +236,17 @@ void h_digits(In s, Out mags, uint8_t* negs, int64_t n, int c, int W,
 void h_hist(In d, int32_t* counts, int64_t W, int64_t N, int D) {
   for (int64_t i = 0; i < W * N; ++i) hist_elem(d, counts, i, N, D);
 }
-void h_phase_a(In keys, In sidx, In px, In py, int64_t n, Out ek, Out ex,
-               Out ey, Out ez, Out tk, Out tx, Out ty, Out tz, int64_t W,
-               int64_t m, int64_t S, int dead, int curve) {
-  by_curve<PhaseA>(curve, keys, sidx, px, py, n, ek, ex, ey, ez, tk, tx, ty,
-                   tz, W, m, S, dead);
+void h_phase_a(In keys, In sidx, In pts, Out ek, Out ex, Out ey, Out ez,
+               Out tk, Out tx, Out ty, Out tz, int64_t W, int64_t m,
+               int64_t S, int dead, int depth, int T, int curve) {
+  by_curve<PhaseA>(curve, keys, sidx, pts, ek, ex, ey, ez, tk, tx, ty, tz, W,
+                   m, S, dead, depth, T);
 }
-void h_wscan(In bx, In by, In bz, Out rx, Out ry, Out rz, Out wx, Out wy,
-             Out wz, int64_t N, int64_t S, int curve) {
-  by_curve<Wscan>(curve, bx, by, bz, rx, ry, rz, wx, wy, wz, N, S);
+void h_wscan_level(In xx, In xy, In xz, In px, In py, In pz, Out Px, Out Py,
+                   Out Pz, Out Xx, Out Xy, Out Xz, int64_t W, int64_t E,
+                   int64_t NB, int seg, int T, int base, int curve) {
+  by_curve<Wscan>(curve, xx, xy, xz, px, py, pz, Px, Py, Pz, Xx, Xy, Xz, W, E,
+                  NB, seg, T, base);
 }
 void h_fmul(In a, In b, Out r, int64_t n, int canonical_out, int field) {
   by_field<Fmul>(field, a, b, r, n, canonical_out);
@@ -519,10 +546,19 @@ def test_hist_counts_identical(host):
                                   _np(hist.hist_counts_plain(torch.from_numpy(d), D)))
 
 
-def _phase_a_case(host, curve):
-    W, S, m, n, D = 2, 6, 4, 20, 8
+# (W, S, m, depth, T): S not a multiple of the ring depth with two blocks,
+# S below the depth with a partial last block, single-step lanes, a ring of
+# one slot, a ring of eight (the kernel's depth is PTT_PHASE_A_RING, 4 by
+# default; the host form takes it as a template argument); the last 3
+# entries of each window are dead padding.
+PHASE_A_GEOMETRIES = [(2, 6, 4, 4, 4), (2, 3, 5, 4, 8), (3, 1, 6, 4, 4),
+                      (2, 5, 3, 1, 2), (1, 11, 2, 8, 2)]
+
+
+def _phase_a_case(host, curve, W, S, m, depth, T):
+    n, D = 20, 8
     L = mont.n_words(curve.fp)
-    rng = np.random.default_rng(9)
+    rng = np.random.default_rng(9 + S)
     _, base = _points(n, 13, curve)
     keys = np.sort(rng.integers(0, D + 1, size=(W, S * m)), axis=1)
     keys[:, -3:] = D + 1                                  # dead padding
@@ -541,13 +577,16 @@ def _phase_a_case(host, curve):
     o_e = [np.full((L, P), 0xA5A5A5A5, np.uint32) for _ in range(3)]
     o_tk = np.empty((W, m), np.uint32)
     o_t = [np.empty((L, W * m), np.uint32) for _ in range(3)]
-    _call(host.h_phase_a, _np(k5), _np(s5), _np(base.x), _np(base.y), n,
-          o_ek, *o_e, o_tk, *o_t, W, m, S, ("i32", D + 1), _curve_id(curve))
+    pts = phase_a.point_major(base.x, base.y)
+    assert pts.shape == (n, 2 * L)
+    _call(host.h_phase_a, _np(k5), _np(s5), _np(pts), o_ek, *o_e, o_tk,
+          *o_t, W, m, S, ("i32", D + 1), ("i32", depth), ("i32", T),
+          _curve_id(curve))
     np.testing.assert_array_equal(o_ek.view(np.int32), _np(ek))
     np.testing.assert_array_equal(o_tk.view(np.int32), _np(tk))
     # emissions are defined where a run ended; nothing is stored elsewhere
     ended = _np(ek).reshape(P) != D + 1
-    assert 0 < ended.sum() < P
+    assert ended.sum() < P and (ended.sum() > 0) == (S > 1)
     for o, e in zip(o_e, ep):
         np.testing.assert_array_equal(o.view(np.int32)[:, ended],
                                       _np(e).reshape(L, P)[:, ended])
@@ -558,29 +597,75 @@ def _phase_a_case(host, curve):
 
 
 def test_phase_a_bit_identical(host):
-    _phase_a_case(host, BN254)
+    """phase_a.cu's lane loop with its ring of cp.async copies (deferred on
+    the host until their wait) at every geometry of PHASE_A_GEOMETRIES,
+    equal to scan_plain."""
+    for geom in PHASE_A_GEOMETRIES:
+        _phase_a_case(host, BN254, *geom)
 
 
 @BLS_CURVES
 def test_phase_a_bit_identical_bls(host, curve):
-    """The 12-word instantiations: the y negation in Fp377 / Fp381, 12-word
-    gathers, emissions and tails."""
-    _phase_a_case(host, curve)
+    """The 12-word instantiations: the y negation in Fp377 / Fp381, 96-byte
+    rows in six 16-byte chunks, emissions and tails."""
+    for geom in PHASE_A_GEOMETRIES:
+        _phase_a_case(host, curve, *geom)
+
+
+def _wscan_host(host, curve, buckets, plan):
+    """weighted_window_sum's launches on the host: each level of ``plan``
+    through wscan.cu's host form; (L, W, D) in, (L, W) out."""
+    L, W, _ = buckets.x.shape
+    x, p = [_np(a) for a in buckets], None
+    for lv in plan:
+        P = [np.empty((L, W, lv.blocks), np.int32) for _ in range(3)]
+        X = [np.empty((L, W, lv.blocks), np.int32) for _ in range(3)] \
+            if lv.blocks > 1 else [None] * 3
+        _call(host.h_wscan_level, *x, *(p or [None] * 3), *P, *X, W, lv.E,
+              lv.blocks, ("i32", lv.seg), ("i32", lv.threads),
+              ("i32", int(p is None)), _curve_id(curve))
+        x, p = X, P
+    return ProjPoint(*(torch.from_numpy(a[:, :, 0]) for a in p))
+
+
+# One wave of csrc/wscan.cu on the H100: 132 SMs x 2 blocks of 128.
+H100_WSCAN_WAVE = 132 * 2 * 128
 
 
 def _weighted_scan_case(host, curve):
-    S, N = 5, 6
+    """Windows of D buckets drawn from a pool of 24 points that holds the
+    identity; where there are three windows, the second holds identities
+    only and the third one non-identity bucket, B_D."""
     L = mont.n_words(curve.fp)
-    p, _ = _points(S * N, 17, curve)
-    b = ProjPoint(*(a.reshape(L, S, N).contiguous() for a in p))
-    run, wsum = point_kernels.weighted_scan_plain(curve, b)
-    outs = [np.empty((L, N), np.uint32) for _ in range(6)]
-    _call(host.h_wscan, *map(_np, b), *outs, N, S, _curve_id(curve))
-    for o, e in zip(outs, (*run, *wsum)):
-        np.testing.assert_array_equal(o.view(np.int32), _np(e))
+    for W, D, plan in (
+            (1, 260, None),        # seg 2, two blocks a window, then one
+            (3, 5, None),          # D not a multiple of the segment
+            (3, 40, [reduce.Level(40, 2, 2, 10), reduce.Level(10, 2, 2, 3),
+                     reduce.Level(3, 1, 4, 1)])):      # three levels
+        pool, _ = _points(24, 17 + D, curve)
+        pick = torch.from_numpy(np.random.default_rng(D).integers(
+            24, size=W * D))
+        b = ProjPoint(*(a[:, pick].reshape(L, W, D).clone() for a in pool))
+        if W == 3:
+            ident = cp.identity(curve, (D,))
+            for a, i in zip(b, ident):
+                a[:, 1] = i
+                a[:, 2, :-1] = i[:, :-1]
+        plan = plan or reduce.wscan_plan(W, D, H100_WSCAN_WAVE)
+        assert plan[-1].blocks == 1 and all(
+            lv.E == prev.blocks for prev, lv in zip(plan, plan[1:]))
+        got = _wscan_host(host, curve, b, plan)
+        want = reduce.weighted_window_sum_plain(curve, b)
+        assert bool(cp.eq(curve, got, want).all())
+        if W == 3:
+            assert bool(cp.is_identity(curve, got)[1])
+            assert not bool(cp.is_identity(curve, got)[2])
 
 
 def test_weighted_scan_bit_identical(host):
+    """wscan.cu's levels (segment scans, the block's suffix scan and tree in
+    shared memory, the scaled block runs) run block by block on the host,
+    point-equal to the plain weighted_window_sum."""
     _weighted_scan_case(host, BN254)
 
 

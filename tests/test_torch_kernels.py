@@ -126,19 +126,19 @@ def test_point_ops_match_jax():
     x, y, z = pi[2]
     qi = pi[:2] + [(x, (-y) % P, z)] + _proj_ints(5, 22)[1:] + [(0, 1, 0)]
     (p, jp), (q, jq) = _both(pi), _both(qi)
-    got = cp.add(BN254, p, q)
-    want = jax.jit(lambda a, b: jcp.add(JBN254, a, b))(jp, jq)
-    assert port_affine(got) == jax_affine(want)
-    assert port_affine(got)[2] is None
     aff = [curve_ref.random_point(BN254, random.Random(s)) for s in range(8)]
     xs, ys = zip(*aff)
+    # the three JAX formulas in one jitted function: one compile
+    jadd, jmadd, jdbl = jax.jit(lambda a, b, c: (
+        jcp.add(JBN254, a, b), jcp.madd(JBN254, a, c), jcp.dbl(JBN254, a)))(
+            jp, jq, jcp.AffinePoint(to_jax(xs), to_jax(ys)))
+    got = cp.add(BN254, p, q)
+    assert port_affine(got) == jax_affine(jadd)
+    assert port_affine(got)[2] is None
     got = cp.madd(BN254, p, AffinePoint(to_port(xs), to_port(ys)))
-    want = jax.jit(lambda a, b: jcp.madd(JBN254, a, b))(
-        jp, jcp.AffinePoint(to_jax(xs), to_jax(ys)))
-    assert port_affine(got) == jax_affine(want)
+    assert port_affine(got) == jax_affine(jmadd)
     got = cp.dbl(BN254, p)
-    want = jax.jit(lambda a: jcp.dbl(JBN254, a))(jp)
-    assert port_affine(got) == jax_affine(want)
+    assert port_affine(got) == jax_affine(jdbl)
     assert port_affine(got)[0] is None                  # 2 * identity
 
 

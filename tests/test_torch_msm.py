@@ -159,21 +159,57 @@ def test_msm_above_2_20_is_not_ported():
         msm.window_sums(BN254, px, px, digits, digits.bool(), 16)
 
 
+# Threads of one wave of phase A on the H100, as its builds report them
+# (phase_a.resident_threads; chip_smoke.py logs them): 132 SMs x 4 blocks
+# of 128 for BN254 and x 3 for the BLS curves.
+H100_PHASE_A_WAVE = {"bn254": 132 * 128 * 4, "bls12_377": 132 * 128 * 3,
+                     "bls12_381": 132 * 128 * 3}
+
+
 def test_phase_a_geometry_for_the_h100():
     """The H100 lane rule: every phase-A launch of the 2^16 and 2^20 MSMs
-    runs >= 2^16 threads, all 16 windows of 2^20 in one launch, the tests'
-    n still give one lane per point, and window_bits keeps its choices."""
-    from panda_tpu_torch.ops import msm
+    runs in one wave of its curve's resident threads on the H100 and fills
+    at least 3/4 of it, all 16 windows of 2^20 in one launch, the tests' n
+    still give one lane per point, window_bits keeps its choices, and the
+    plain version on the CPU takes CPU_THREADS."""
+    from panda_tpu_torch.curves.config import BLS12_377, BLS12_381
+    from panda_tpu_torch.ops import msm, phase_a
     assert (msm.window_bits(16), msm.window_bits(20)) == (13, 16)
-    for log_n, groups in ((16, 1), (20, 1)):
-        n = 1 << log_n
-        W = msm.signed_window_count(FR.bits, msm.window_bits(log_n))
-        wg = msm._window_group_size(n, W)
-        assert -(-W // wg) == groups
-        assert wg * msm.default_lanes(n, wg) >= 1 << 16
+    for curve in (BN254, BLS12_377, BLS12_381):
+        assert phase_a.resident_threads(curve, torch.device("cpu")) == \
+            phase_a.CPU_THREADS
+        wave = H100_PHASE_A_WAVE[curve.name]
+        for log_n in (16, 20):
+            n = 1 << log_n
+            W = msm.signed_window_count(curve.fr.bits, msm.window_bits(
+                log_n, bits=curve.fr.bits))
+            wg = msm._window_group_size(n, W)
+            assert wg == W
+            assert 3 * wave < 4 * wg * msm.default_lanes(n, wg, wave) <= \
+                4 * wave
     for n in (48, 64):
         W = msm.signed_window_count(FR.bits, msm.window_bits(6))
-        assert msm.default_lanes(n, W) == n == msm._cost_model_lanes(n, W)
+        assert msm.default_lanes(n, W, phase_a.CPU_THREADS) == n == \
+            msm._cost_model_lanes(n, W)
+
+
+def test_occupancy_sweep_builds_change_the_source():
+    """Each of the sweep's builds sets macros that its source reads with a
+    default (so no build is silently the default one), each kernel's first
+    build is the default, and the sweep needs a GPU."""
+    import re
+    from panda_tpu_torch.ops import _ext
+    from panda_tpu_torch.tools import occupancy_sweep
+    firsts = {}
+    for name, defines in occupancy_sweep.BUILDS:
+        firsts.setdefault(name, defines)
+        text = (_ext.CSRC / f"{name}.cu").read_text()
+        for d in defines:
+            macro = re.fullmatch(r"-D(\w+)=\d+", d).group(1)
+            assert f"#ifndef {macro}" in text, d
+    assert firsts == {"phase_a": (), "wscan": ()}
+    with pytest.raises(RuntimeError):
+        occupancy_sweep.main()
 
 
 def test_bucket_tables_do_not_depend_on_the_lane_count():
@@ -196,7 +232,9 @@ def test_bucket_tables_do_not_depend_on_the_lane_count():
         FP, [v * R % FP.modulus for v in vals])) for vals in zip(*pts))
     d, s = torch.from_numpy(mags.astype(np.int32)), torch.from_numpy(negs)
     steps = [-(-(1 << 16) // m) for m in (msm._cost_model_lanes(1 << 16, 20),
-                                          msm.default_lanes(1 << 16, 20))]
+                                          msm.default_lanes(
+                                              1 << 16, 20,
+                                              H100_PHASE_A_WAVE["bn254"]))]
     assert steps == [128, 20]
     old, new = (msm._bucket_tables(BN254, px, py, d, s, c, -(-n // S))
                 for S in steps)
@@ -222,10 +260,20 @@ def test_wrappers_take_no_other_device():
                                      device="meta"), 3)
 
 
-def _run(code_or_args, cwd):
+def _start(code_or_args, cwd):
     env = dict(os.environ, PYTHONPATH="")
-    return subprocess.run([sys.executable, *code_or_args], cwd=cwd, env=env,
-                          capture_output=True, text=True, timeout=300)
+    return subprocess.Popen([sys.executable, *code_or_args], cwd=cwd,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _wait(proc):
+    out, err = proc.communicate(timeout=300)
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def _run(code_or_args, cwd):
+    return _wait(_start(code_or_args, cwd))
 
 
 FOREIGN = ("import sys\n"
@@ -240,7 +288,8 @@ def test_package_imports_without_jax():
                 "from panda_tpu_torch.runtime import api, manager\n"
                 "from panda_tpu_torch.ops import _ext, msm, ntt\n"
                 "from panda_tpu_torch.reference import curve_ref, ntt_ref\n"
-                "from panda_tpu_torch.tools import profile_gather4\n"
+                "from panda_tpu_torch.tools import occupancy_sweep, "
+                "profile_gather4\n"
                 + FOREIGN], ROOT)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"
@@ -268,9 +317,9 @@ def test_chip_smoke_imports_without_jax():
 
 
 def test_chip_smoke_fails_without_gpu_or_repo(tmp_path):
-    res = _run([str(ROOT / "chip_smoke.py")], ROOT)
-    assert res.returncode != 0 and '"ok"' not in res.stdout
     alone = tmp_path / "chip_smoke.py"
     alone.write_text((ROOT / "chip_smoke.py").read_text())
-    res = _run([str(alone)], tmp_path)
-    assert res.returncode != 0 and '"ok"' not in res.stdout
+    procs = [_start([str(ROOT / "chip_smoke.py")], ROOT),       # both at once
+             _start([str(alone)], tmp_path)]
+    for res in map(_wait, procs):
+        assert res.returncode != 0 and '"ok"' not in res.stdout
