@@ -6,23 +6,26 @@
 Phases, each of which raises on failure (the exit code is then non-zero):
 
 1. environment: torch, CUDA, nvcc, the card's name and power limit;
-2. build the nine CUDA kernels from panda_tpu_torch/csrc, in parallel,
+2. build the ten CUDA kernels from panda_tpu_torch/csrc, in parallel,
    and log each kernel entry's registers and spills (the build's ptxas -v
    reports), each
    template instantiation by its curve or field, the BN254 ones beside
    their registers from before the kernels took a curve;
 3. each kernel against its plain PyTorch version on the card, at its main
-   path's shapes: the five MSM kernels at n = 2^16 points (c = 13, W = 20,
+   path's shapes: the six MSM kernels at n = 2^16 points (c = 13, W = 20,
    D = 4096) and at n = 2^20 (c = 16, W = 16, D = 32768) for BN254, and
    for BLS12-377 and BLS12-381 (12-word coordinates, c from the scalar
-   field's bits, the same geometry) at 2^16 and, for digits, hist, phase
-   A and the weighted reduction, at 2^20 (where phase A is also timed with
-   its indices cut below n / 8, the bases' table in L2, a measurement
-   only): exact equality for the digits, the
-   histogram and phase A (keys, tails, and emissions where a run ended;
-   its bucket tables point-equal), point equality for the point ops and
-   the weighted reduction (wscan's two launches against the plain
-   decomposition, timed level by level); fmul at (8, 2^20), the DFT at K = 32, nb = 2^15 (the
+   field's bits, the same geometry) at 2^16 and, for all but the point
+   ops, at 2^20 (where phase A is also timed with its indices cut below
+   n / 8, the bases' table in L2, a measurement only): exact equality for
+   the digits, the histogram and phase A (keys, tails, and emissions where
+   a run ended; its bucket tables point-equal), point equality for the
+   bucket assembly (buckets.cu's two launches against the plain gathers,
+   scan and add, on a draw from 2^16 pool scalars and on the digits of 8
+   pool scalars, whose buckets span hundreds of lanes, each launch timed
+   on its own), the point ops and the weighted reduction (wscan's two
+   launches against the plain decomposition, timed level by level); fmul
+   at (8, 2^20), the DFT at K = 32, nb = 2^15 (the
    four-step 2^20 NTT's passes), forward and with the inverse's scale and
    the canonical pass, and at K = 4, nb = 2^20 (the 2^22 NTT's leaf), and
    the radix-2 pass small_ntt at K = 256, nb = 2^12 with its T1 table and
@@ -45,7 +48,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    and read after it (each of its kernels must have launched): the MSM
    slice, api.msm_bn254_with_cached_bases at n = 2^16 and 2^20 with cached
    bases, every call held to the pool-aggregated big-integer oracle, host
-   wall time of 20 calls; the BLS MSMs, each curve counted on its own,
+   wall time of 20 calls (point_ops must not launch on an MSM path); the
+   point API (curves.point.dbl / add, kernel point_ops) running Horner
+   over the 2^16 call's window sums on the card, held to the host's Horner
+   and the oracle; the BLS MSMs, each curve counted on its own,
    after a check that the bases ingest on the card equals the CPU's for
    48-byte coordinates: api.msm_bls12_377 / api.msm_bls12_381 (bases
    bytes in every call) and api.msm_with_cached_bases at 2^16 and 2^20,
@@ -79,12 +85,15 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    device synchronise around each stage, median, min and max of 10 calls;
 6. the device's busy share of one call each (MSM 2^16 and 2^20, BLS12-377
    and BLS12-381 MSM 2^20, NTT 2^20 and 2^22 with each engine), and each
-   kernel's launches and device ms in that call, from torch.profiler.
+   kernel's launches and device ms in that call, from torch.profiler (a
+   2^20 MSM call launches hist once and point_ops never); each kernel of a
+   2^20 call ranked by its device ms less its launches' bounds, each at
+   its own shape.
 
 The second-to-last line is a JSON object with one entry per kernel (the
-four curve-templated MSM kernels with a record for each curve, the three
-NTT kernels with one for each scalar field; wscan's "ms" is a weighted
-reduction's two launches together); the last line is
+five curve-templated MSM kernels with a record for each curve, the three
+NTT kernels with one for each scalar field; the "ms" of buckets and of
+wscan is a call's two launches together); the last line is
 {"ok": true, "device": {...}}.  Inputs come from fixed seeds.
 """
 
@@ -154,6 +163,7 @@ def cuda_ms(fn, reps: int) -> float:
 # The kernels of each kernel library, by the names the profiler records.
 KERNEL_NAMES = {"digits": ("digits_kernel",), "hist": ("hist_kernel",),
                 "phase_a": ("phase_a_kernel",),
+                "buckets": ("buckets_tails_kernel", "buckets_fill_kernel"),
                 "point_ops": ("padd_kernel", "pmadd_kernel", "pdbl_kernel"),
                 "wscan": ("wscan_kernel",), "fmul": ("fmul_kernel",),
                 "dft": ("dft_kernel",), "small_ntt": ("small_ntt_kernel",),
@@ -337,8 +347,10 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
                   through_phase_a: bool = False) -> dict:
     """Phase 3: each MSM kernel of ``curve`` against its plain version at
     the main-path shapes for n points (with ``through_phase_a``, digits,
-    hist, phase A and the weighted reduction only, and the point ops' bound
-    at these shapes without a launch).  Returns {kernel: {max_abs_err,
+    hist, phase A, the bucket assembly and the weighted reduction only, and
+    the point ops' bound at these shapes without a launch).  The bucket
+    assembly runs on two inputs: these digits and those of 8 pool scalars
+    ("long_runs").  Returns {kernel: {max_abs_err,
     batch_ms (CUDA events around a batch), plain_ms (None unless
     ``plain_times``), bound_ms, bound_by, library_ms}}; ``timer`` fills in
     "ms", the device ms a launch (for wscan, the sum of its levels'), when
@@ -418,6 +430,14 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
            plain_ms(lambda: hist.hist_counts_plain(km, D), 5),
            torch.equal(kh, ph), bound(W * n * 4 + W * D * 4, 0, IMAD_PER_S),
            lib)
+    # ... and exact where whole warps share a digit (every add of a warp to
+    #    one shared bin): one digit a window, from 1 up to D
+    one = (torch.arange(W, device=device, dtype=torch.int32) * 997 % D +
+           1)[:, None].expand(W, n).contiguous()
+    one[-1] = D
+    hist_exact(hist, one, D, "one digit a window")
+    res["hist"]["one_digit"] = timed(lambda: hist.hist_counts(one, D), 20,
+                                     KERNEL_NAMES["hist"])
 
     # 3. phase A: exact keys and tails, exact emissions where a run ended,
     #    and the bucket tables it yields; the work this data needs is one
@@ -430,14 +450,17 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
     pa = phase_a.scan_plain(curve, st.keys, st.sidx, px, py, D + 1)
     ended = pa[0] != D + 1
     kb = msm.assemble_buckets(curve, st, *ka)
-    pb = msm.assemble_buckets(curve, st, *pa)
+    pb = msm.assemble_buckets_plain(curve, st, *pa)
     ok = torch.equal(ka[0], pa[0]) and torch.equal(ka[2], pa[2]) and all(
         torch.equal(a, b) for a, b in zip(ka[3], pa[3])) and all(
         torch.equal(a[:, ended], b[:, ended]) for a, b in zip(ka[1], pa[1])) \
         and bool(cp.eq(curve, kb, pb).all())
+    # (its own outputs; the tables, other projective representatives since
+    # the bucket assembly is buckets.cu, are point-equal above and the
+    # bucket assembly's record)
     err = max(word_err(a, b) for a, b in zip(
-        (*kb, *ka[3], *(t[:, ended] for t in ka[1])),
-        (*pb, *pa[3], *(t[:, ended] for t in pa[1]))))
+        (*ka[3], *(t[:, ended] for t in ka[1])),
+        (*pa[3], *(t[:, ended] for t in pa[1]))))
     runs = int(ended.sum().item())
     log(f"{tag} phase_a: {W} windows x {m} lanes x {st.keys.shape[1]} steps "
         f"in one launch; {live} mixed adds, {runs} run sums stored")
@@ -463,6 +486,36 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
                              "table_bytes": 2 * fe * (cut + 1)}
         timer.add(scan_l2, 5, KERNEL_NAMES["phase_a"], res["phase_a_l2"])
 
+    # 3b. the bucket assembly (buckets.cu's tails and table launches) on
+    #    phase A's outputs against assemble_buckets_plain on the same
+    #    inputs, point-equal: these digits (a draw from 2^16 pool scalars,
+    #    close to uniform) and digits of 8 pool scalars, whose buckets each
+    #    span hundreds of lanes (long tail runs, a look-back over blocks)
+    record("buckets", *bucket_check(curve, st, ka, timed, plain_ms, tag,
+                                    "uniform draw"))
+    s8 = s[:, torch.arange(n, device=device) % 8].contiguous()
+    st8 = msm.sorted_streams(*digits.signed_digits(curve.fr, s8, c, W), c, m)
+    # the run ends hi_b of both inputs against a plain count (each sorted
+    # stream's keys <= b) before the bucket assembly reads them, and the
+    # histogram of the sorted keys (long runs of one digit) exact
+    for label, stx in (("uniform draw", st), ("8 pool scalars", st8)):
+        ks = torch.sort(stx.keys.reshape(W, -1), dim=1).values
+        if not torch.equal(stx.hi, torch.searchsorted(
+                ks, torch.arange(1, D + 1, dtype=ks.dtype, device=device)
+                .expand(W, D).contiguous(), right=True)):
+            raise AssertionError(f"run ends ({curve.name}, {label}): hist "
+                                 "and cumsum disagree with a plain count")
+    hist_exact(hist, st8.keys.reshape(W, -1), D, "sorted keys, 8 pool "
+               "scalars")
+    a8 = phase_a.scan(curve, st8.keys, st8.sidx, px, py, D + 1, pts)
+    err, ms8, plain8, ok, bnd = bucket_check(curve, st8, a8, timed, plain_ms,
+                                             tag, "8 pool scalars")
+    if not ok:
+        raise AssertionError(f"buckets ({curve.name}, 8 pool scalars): "
+                             "kernel disagrees with plain")
+    ms8.update({"max_abs_err": err, "plain_ms": plain8, **bnd})
+    res["buckets"]["long_runs"] = ms8      # the timer fills in its "ms"
+
     # 4. the weighted reduction of the bucket tables (its plan's launches
     #    against the plain decomposition, point-equal); the bound counts the
     #    function's work, two complete adds a bucket and the tables read
@@ -471,6 +524,12 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
     N = W * D
     plan = reduce.wscan_plan(W, D, reduce.wscan_threads(curve, device))
     wscan_bound = bound(3 * fe * N + 3 * fe * W, imad(24 * N), IMAD_PER_S)
+    # each level on its own: x (and p above level 0) read, P (and X below
+    # the last level) written, two complete adds an element
+    wscan_bound["launch_bounds_ms"] = [bound(
+        3 * fe * W * (lv.E * (1 + (i > 0)) + lv.blocks * (
+            2 if lv.blocks > 1 else 1)), imad(24 * W * lv.E),
+        IMAD_PER_S)["bound_ms"] for i, lv in enumerate(plan)]
     kr = reduce.weighted_window_sum(curve, kb)
     pr = reduce.weighted_window_sum_plain(curve, kb)
     log(f"{tag} wscan: {len(plan)} launches {plan}")
@@ -495,8 +554,9 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
             f"{N} elements {padd_bound}")
         return res
 
-    # 5. point ops on the bucket tables' shape (L, W, D): the interior +
-    #    tail add, a mixed add of bases, a doubling
+    # 5. point ops on the bucket tables' shape (L, W, D) (where the bucket
+    #    assembly's final add ran before buckets.cu): an add, a mixed add
+    #    of bases, a doubling
     q = ProjPoint(*(a.flip(-1).contiguous() for a in kb))
     idx = torch.arange(W * D, device=device).reshape(W, D) % px.shape[1]
     qa = AffinePoint(px[:, idx], py[:, idx])
@@ -522,6 +582,80 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
                                  "bounds": bnds}
     record("point_ops", max(errs), kms[0], pms[0], all(oks), bnds[0])
     return res
+
+
+def hist_exact(hist, d, D: int, label: str) -> None:
+    """Raise unless hist.hist_counts(d, D) equals the plain counts."""
+    import torch
+    if not torch.equal(hist.hist_counts(d, D), hist.hist_counts_plain(d, D)):
+        raise AssertionError(f"hist ({label}, D = {D}): kernel disagrees "
+                             "with plain")
+    log(f"[kernels] hist ({label}, {tuple(d.shape)}, D = {D}): exact")
+
+
+def bucket_check(curve, st, a, timed, plain_ms, tag: str, label: str):
+    """Phase 3's bucket assembly: csrc/buckets.cu's two launches
+    (assemble_buckets) against assemble_buckets_plain on the same phase-A
+    outputs ``a``, point-equal (max_abs_err of the affine words), each
+    launch timed on its own inputs.  The bound counts what this data needs:
+    hi_b, the emission key at each run end and the emissions that are
+    valid, the tail keys and the live tails read once, the tables written
+    once; an add a live tail lane that continues a run and one a bucket
+    with both parts.  Returns (max_abs_err, timing, plain ms, ok, bound),
+    the bound with each launch's ("launch_bounds_ms": the tails launch
+    reads the tails, and hi_b and the emission of each bucket with tails,
+    and writes those buckets; the fill launch the rest) and the bound of
+    the point-op launches the bucket assembly made before (a padd over the
+    tails a round of the ceil(log2 m)-round scan, one over the tables)."""
+    import torch
+    from panda_tpu_torch.curves import point as cp
+    from panda_tpu_torch.curves.point import ProjPoint
+    from panda_tpu_torch.fields import mont
+    from panda_tpu_torch.ops import msm
+    ekeys, epts, tkeys, tpts = a
+    W, S, m = st.keys.shape
+    D, P = st.D, S * m
+    fe = 4 * mont.n_words(curve.fp)
+    imad = lambda adds: 12 * adds * cios_imads(fe // 4)   # noqa: E731
+    kb = msm.assemble_buckets(curve, st, *a)
+    pb = msm.assemble_buckets_plain(curve, st, *a)
+    ok = bool(cp.eq(curve, kb, pb).all())
+    err = max(word_err(x, y) for x, y in zip(cp.to_affine(curve, kb),
+                                             cp.to_affine(curve, pb)))
+    targets = torch.arange(1, D + 1, dtype=torch.int32, device=ekeys.device)
+    slot = st.hi.clamp(0, P - 1)
+    pos = (slot % S) * m + slot // S
+    valid_i = (ekeys.reshape(W, P).gather(1, pos) == targets) & \
+        (st.hi % S != 0)
+    q = st.hi // S - 1
+    valid_t = (tkeys.gather(1, q.clamp(0, m - 1)) == targets) & (q >= 0)
+    n_i, n_t = int(valid_i.sum().item()), int(valid_t.sum().item())
+    live = int(((tkeys >= 1) & (tkeys <= D)).sum().item())
+    both = int((valid_i & valid_t).sum().item())
+    bnd = bound(W * D * (8 + 4 + 3 * fe) + n_i * 3 * fe + W * m * 4 +
+                live * 3 * fe, imad(live - n_t + both), IMAD_PER_S)
+    bnd["launch_bounds_ms"] = [
+        bound(W * m * 4 + live * 3 * fe + n_t * (8 + 4 + 3 * fe) +
+              both * 3 * fe, imad(live - n_t + both), IMAD_PER_S)["bound_ms"],
+        bound((W * D - n_t) * (8 + 4 + 4 + 3 * fe) + (n_i - both) * 3 * fe,
+              0, IMAD_PER_S)["bound_ms"]]
+    bnd["replaced_point_ops_bound_ms"] = sum(
+        bound(9 * fe * N, imad(N), IMAD_PER_S)["bound_ms"]
+        for N in [W * m] * (m - 1).bit_length() + [W * D])
+    plan = msm.bucket_plan(W, m, msm.buckets_threads(curve, ekeys.device))
+    out = ProjPoint(*(torch.empty_like(x) for x in kb))
+    parts = [lambda fill=fill: msm.bucket_launch(curve, plan, st, *a, out,
+                                                 fill)
+             for fill in (False, True)]
+    log(f"{tag} buckets ({label}): plan {plan}; {n_i} interior runs, "
+        f"{n_t} buckets with tails, {live} live tail lanes, {both} final "
+        f"adds; bound a launch {bnd['launch_bounds_ms']}; the point-op "
+        f"launches it replaced: bound {bnd['replaced_point_ops_bound_ms']:.4f}"
+        " ms a call")
+    ms = timed(lambda: msm.assemble_buckets(curve, st, *a), 20,
+               KERNEL_NAMES["buckets"], parts)
+    return (err, ms, plain_ms(lambda: msm.assemble_buckets_plain(
+        curve, st, *a), 1), ok, bnd)
 
 
 def random_words(n: int, seed: int, top: int = 1 << 32):
@@ -884,6 +1018,55 @@ def slice_run(sl: dict, card: str, reps: int, entry: str = "cached") -> dict:
             "first_s": first, **s,
             "points_per_s": sl["n"] / s["median_ms"] * 1e3, "calls_ms": times,
             "cpu_ms": cpu, "gc_ms": gc_ms[0]}
+
+
+def window_sums(sl: dict):
+    """(window sums (L, W) on the card, c) of a slice's byte-API inputs."""
+    from panda_tpu_torch.ops import msm
+    gm, curve = sl["gm"], sl["curve"]
+    c = msm.window_bits(sl["log_n"], bits=curve.fr.bits)
+    px, py = gm.d_bases[0]
+    return msm.window_sums_fn(curve, c)(
+        px, py, gm.ingest_scalars(sl["scalars"]), gm.point_major(0)), c
+
+
+def point_api_path(sl: dict, sums, c: int) -> dict:
+    """The point API on the card (curves.point.dbl / add, kernel point_ops,
+    which the MSM path no longer launches): Horner over the window sums
+    ``sums`` of a slice's inputs, c doublings and one add a window on
+    (L, 1) points, held to msm.host_horner on the same sums and to the
+    oracle's blob; host wall time and launches."""
+    import torch
+    from panda_tpu_torch.curves import point as cp
+    from panda_tpu_torch.curves.point import ProjPoint
+    from panda_tpu_torch.fields import mont
+    from panda_tpu_torch.ops import _ext, msm
+    gm, curve, log_n = sl["gm"], sl["curve"], sl["log_n"]
+    W = sums.x.shape[1]
+    before = _ext.launches["point_ops"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc = cp.identity(curve, (1,), gm.device)
+    for w in reversed(range(W)):
+        for _ in range(c):
+            acc = cp.dbl(curve, acc)
+        acc = cp.add(curve, acc, ProjPoint(*(a[:, w:w + 1] for a in sums)))
+    aff = cp.to_affine(curve, acc)
+    ms = (time.perf_counter() - t0) * 1e3
+    p = curve.fp.modulus
+    rinv = pow(mont.radix(curve.fp), -1, p)
+    got = None if bool(cp.is_identity(curve, acc)[0]) else tuple(
+        mont.words_to_ints(a)[0] * rinv % p for a in aff)
+    if got != msm.host_horner(curve, sums, c) or \
+            gm.format_affine_result(got) != sl["want"]:
+        raise AssertionError(f"point API Horner ({curve.name} 2^{log_n}): "
+                             "result != host Horner / oracle")
+    launched = _ext.launches["point_ops"] - before
+    log(f"[point API {curve.name} 2^{log_n}] Horner over {W} window sums on "
+        f"the card: {launched} point_ops launches, {ms:.3f} ms (host clock, "
+        "the launches paced by the host); equal to host Horner and oracle")
+    return {"curve": curve.name, "log_n": log_n, "windows": W, "c": c,
+            "point_ops_launches": launched, "ms": ms}
 
 
 STAGES = ("ingest: bytes to words (host)", "ingest: copy to device",
@@ -1394,16 +1577,20 @@ def ntt_stage_breakdown(fr, case: dict, reps: int, impl: str = "auto") -> dict:
             "launches": dict(_ext.launches)}
 
 
+# The TPU kernel each kernel library replaces; buckets.cu replaces the
+# MSM path's use of point_pallas.py's _run (its tail scan and final add).
 REPLACES = {"digits": "panda_tpu/ops/digits_pallas.py:77",
             "hist": "panda_tpu/ops/hist_pallas.py:63",
             "phase_a": "panda_tpu/ops/phase_a_pallas.py:257",
+            "buckets": "panda_tpu/ops/point_pallas.py:48",
             "point_ops": "panda_tpu/ops/point_pallas.py:48",
             "wscan": "panda_tpu/ops/point_pallas.py:167",
             "fmul": "panda_tpu/ops/point_pallas.py:251",
             "dft": "panda_tpu/ops/ntt_fused.py:83",
             "small_ntt": "panda_tpu/ops/ntt_pallas.py:130",
             "dg3": "tools/profile_gather4.py:78"}
-MSM_KERNELS = ("digits", "hist", "phase_a", "point_ops", "wscan")
+MSM_KERNELS = ("digits", "hist", "phase_a", "buckets", "wscan")
+POINT_API_KERNELS = ("point_ops",)
 NTT_KERNELS = ("fmul", "dft")
 RADIX2_KERNELS = ("small_ntt",)
 BLS_KERNELS = ("fmul", "dft", "small_ntt")
@@ -1412,14 +1599,16 @@ PROBE_KERNELS = ("dg3",)
 
 
 # Registers a thread of each BN254 kernel entry (ptxas -v, sm_90a; no
-# stack, no spills): digits, hist and the point ops as before the MSM
-# kernels were templated on the curve; phase A and wscan as redesigned for
-# the H100 (phase A's cp.async ring at launch bounds 128 x 4; the
-# two-level weighted reduction at 128 x 2, without the overlapped scaling
-# that the 12-word curves keep, where it was 128 registers a thread as one
-# column a thread).
-BN254_REGISTERS = {"digits_kernel": 32, "hist_kernel": 16,
-                   "phase_a_kernel": 128, "padd_kernel": 96,
+# stack, no spills): digits and the point ops as before the MSM kernels
+# were templated on the curve; phase A and wscan as redesigned for the H100
+# (phase A's cp.async ring at launch bounds 128 x 4; the two-level
+# weighted reduction at 128 x 2, without the overlapped scaling that the
+# 12-word curves keep, where it was 128 registers a thread as one column a
+# thread); hist with its bins in shared memory (16 with a global atomic a
+# digit); the bucket assembly's tails launch at 128 x 2 and its fill.
+BN254_REGISTERS = {"digits_kernel": 32, "hist_kernel": 29,
+                   "phase_a_kernel": 128, "buckets_tails_kernel": 202,
+                   "buckets_fill_kernel": 40, "padd_kernel": 96,
                    "pmadd_kernel": 96, "pdbl_kernel": 64,
                    "wscan_kernel": 253}
 # The same for the NTT kernels' BN254 Fr and BLS12-377 Fr instantiations
@@ -1452,7 +1641,8 @@ def bn254_register_check(usage: dict) -> list:
     """Each BN254 instantiation of the MSM kernels against BN254_REGISTERS;
     returns the entries that differ or spill (logged, not a gate)."""
     differ = []
-    for lib in ("digits", "hist", "phase_a", "point_ops", "wscan"):
+    for lib in ("digits", "hist", "phase_a", "buckets", "point_ops",
+                "wscan"):
         rows = usage[lib] if lib == "hist" else \
             [(e, *r) for e, *r in usage[lib]
              if any(t in e for t in INSTANCE["bn254"])]
@@ -1475,19 +1665,26 @@ def bn254_register_check(usage: dict) -> list:
     return differ
 
 
-# Launches of one call of a kernel library's function on the MSM path where
-# it is more than one: the weighted reduction's two levels.
-CALL_LAUNCHES = {"wscan": 2}
+def call_bound(launch_bounds: list, launches: int) -> float:
+    """The least time of ``launches`` launches that repeat a call whose
+    launches have the bounds ``launch_bounds`` (a launch each, in order):
+    each launch's bound at its own shape, summed over the call."""
+    calls, rest = divmod(launches, len(launch_bounds))
+    if rest:
+        raise AssertionError(f"{launches} launches are not calls of "
+                             f"{len(launch_bounds)}")
+    return calls * sum(launch_bounds)
 
 
 def gap_ranking(busy: list, call_bounds: dict) -> list:
     """Per call at 2^20 (the profiled MSM call of each curve and each
     engine's BN254 NTT call; ``call_bounds`` maps its label to each
-    kernel's bound at its 2^20 shapes, a launch or, for CALL_LAUNCHES, a
-    call of its launches): each kernel's device ms minus calls x its bound,
-    largest first: where kernel work gains the most.  A kernel whose mean
-    call is shorter than that bound runs at smaller shapes (the point ops'
-    scans) and is left out."""
+    kernel's per-launch bounds, each at its launch's own shape, in the
+    order of one call of the kernel's function): each kernel's device ms
+    minus the sum of its launches' bounds, largest first: where kernel work
+    gains the most.  Every kernel that launched in the call is ranked; one
+    whose launches differ in shape ranks only from a complete profiler
+    record."""
     rows = []
     for b in busy:
         bounds = call_bounds.get(b["label"])
@@ -1496,24 +1693,26 @@ def gap_ranking(busy: list, call_bounds: dict) -> list:
         for k, v in b["per_kernel"].items():
             if not v["recorded"]:
                 continue
-            if k in CALL_LAUNCHES and v["recorded"] < v["launches"]:
-                # its launches differ in size: only a complete record adds
-                log(f"[ranking] {k} ({b['label']}): {v['recorded']} of "
-                    f"{v['launches']} launches recorded, not ranked")
-                continue
-            per_call = v["device_ms"] / v["recorded"] * CALL_LAUNCHES.get(k, 1)
-            calls = v["launches"] / CALL_LAUNCHES.get(k, 1)
-            if per_call < bounds[k]:
-                continue
+            lb = bounds[k]
+            device = v["device_ms"]
+            if v["recorded"] < v["launches"]:
+                if len(set(lb)) > 1:
+                    log(f"[ranking] {k} ({b['label']}): {v['recorded']} of "
+                        f"{v['launches']} launches recorded, not ranked")
+                    continue
+                device *= v["launches"] / v["recorded"]
+            bnd = call_bound(lb, v["launches"])
             rows.append({"call": b["label"], "kernel": k,
-                         "launches": v["launches"], "device_ms_a_call":
-                         per_call, "gap_ms": calls * (per_call - bounds[k])})
+                         "launches": v["launches"], "device_ms": device,
+                         "launch_bounds_ms": lb, "bound_ms": bnd,
+                         "gap_ms": device - bnd})
     rows.sort(key=lambda r: -r["gap_ms"])
-    log("[ranking] per call at 2^20, calls x (device ms a call - bound), a "
-        "call one launch but for wscan's two levels; dg3 is on no path of "
-        "the system and is not ranked: " +
+    log("[ranking] per call at 2^20, device ms of a kernel's launches minus "
+        "the sum of their bounds, each at its own shape; dg3 is on no path "
+        "of the system and is not ranked: " +
         "; ".join(f"{r['kernel']} ({r['call']}) {r['launches']} launches, "
-                  f"{r['device_ms_a_call']:.4f} ms a call, gap "
+                  f"{r['device_ms']:.4f} ms, bounds a launch "
+                  f"{[round(x, 4) for x in r['launch_bounds_ms']]}, gap "
                   f"{r['gap_ms']:.3f} ms" for r in rows))
     return rows
 
@@ -1618,10 +1817,18 @@ def main() -> int:
     #    the kernels line are its sum over the paths
     sizes = [slice_inputs(BN254, k, device) for k in (16, 20)]
     runs, counts = counted(MSM_KERNELS,
-                           lambda: [slice_run(sl, card, 20) for sl in sizes])
+                           lambda: [slice_run(sl, card, 20) for sl in sizes],
+                           absent=POINT_API_KERNELS)
     bn254_counts = dict(counts)
 
     mark("BN254 MSM path")
+
+    # the point API on the card, counted on its own: point_ops is on no MSM
+    # path since the bucket assembly became buckets.cu
+    sums, c_16 = window_sums(sizes[0])
+    point_api, point_counts = counted(
+        POINT_API_KERNELS, lambda: point_api_path(sizes[0], sums, c_16))
+    bn254_counts["point_ops"] = point_counts["point_ops"]
 
     # the BLS MSMs: through the curve's alias (bases bytes in every call)
     # and msm_with_cached_bases, at 2^16 (5 timed calls, to keep the run's
@@ -1636,7 +1843,8 @@ def main() -> int:
                 slice_run(sl, card, 5 if sl["log_n"] == 16 else
                           10 if entry == "alias" else 20, entry)
                 for sl in bls_sizes[cv.name]
-                for entry in ("alias", "cached")])
+                for entry in ("alias", "cached")],
+            absent=POINT_API_KERNELS)
     cases = [ntt_case(fr, k, 20261016 + k) for k in (20, 22)]
     bls_case = ntt_case(BLS12_377.fr, 20, 377)
     bls381_case = ntt_case(BLS12_381.fr, 20, 381)
@@ -1708,7 +1916,7 @@ def main() -> int:
     probe_rows, probe_counts = counted(PROBE_KERNELS, probe)
     layout = probe_layout_line(sizes[1], probe_rows, res20["phase_a"]["ms"],
                                card)
-    for c in (ntt_counts, r2_counts, bls_counts, *b381_counts,
+    for c in (point_counts, ntt_counts, r2_counts, bls_counts, *b381_counts,
               *sw_counts.values(), probe_counts, *bls_counts_msm.values()):
         for k, v in c.items():
             counts[k] += v
@@ -1747,26 +1955,37 @@ def main() -> int:
             cs[impl]["gm"].deinit()
     sw_case["jnp"]["gm"].deinit()
 
-    # bounds a launch at the 2^20 shapes: the MSM kernels' from the 2^20
-    # checks (point ops: padd on the bucket tables), fmul's and the DFT's
-    # from the 2^20 NTT's passes, small_ntt's the mean over its three passes
-    bounds = {k: res20[k]["bound_ms"] for k in MSM_KERNELS}
-    bounds.update({k: res[k]["bound_ms"] for k in ("fmul", "dft")})
-    bounds["small_ntt"] = (res["small_ntt"]["bound_ms"] +
-                           2 * res["small_ntt_k64"]["bound_ms"]) / 3
+    # bounds of each launch of a call at the 2^20 shapes: the MSM kernels'
+    # from the 2^20 checks (the bucket assembly's two launches and the
+    # weighted reduction's two levels each at its own), fmul's and the
+    # DFT's from the 2^20 NTT's passes, small_ntt's three passes (the top
+    # with its T1 table, then twice K = 64)
+    def launch_bounds(r, k):
+        return r[k].get("launch_bounds_ms", [r[k]["bound_ms"]])
+
+    bounds = {k: launch_bounds(res20, k) for k in MSM_KERNELS}
+    bounds.update({k: launch_bounds(res, k) for k in ("fmul", "dft")})
+    bounds["small_ntt"] = [res["small_ntt"]["bound_ms"]] + \
+        [res["small_ntt_k64"]["bound_ms"]] * 2
     call_bounds = {b["label"]: bounds for b in busy
                    if "2^20" in b["label"] and not b["label"].startswith("BLS")}
     for cv in bls_curves:
         r = bls_res[f"{cv.name} 2^20"]
         call_bounds[f"BLS12-{cv.name[-3:]} MSM 2^20"] = {
-            k: r[k]["bound_ms"] for k in MSM_KERNELS}
+            k: launch_bounds(r, k) for k in MSM_KERNELS}
+    for b in busy:
+        if "MSM 2^20" in b["label"]:
+            pk = b["per_kernel"]
+            if "point_ops" in pk or pk.get("hist", {}).get("launches") != 1:
+                raise AssertionError(f"{b['label']}: launches {pk}, want no "
+                                     "point_ops and one hist")
     mark("stage breakdowns and busy shares")
     ranking = gap_ranking(busy, call_bounds)
 
     # the curve-templated MSM kernels: each curve's device ms a launch,
     # launches on its path, bound, plain ms and its instantiations' ptxas
     # rows (phase A also at 2^20)
-    for k in ("digits", "phase_a", "point_ops", "wscan"):
+    for k in ("digits", "phase_a", "buckets", "point_ops", "wscan"):
         by_curve = {}
         for cv, r, n_launch in (
                 (BN254, res, bn254_counts),
@@ -1786,8 +2005,14 @@ def main() -> int:
             if k == "phase_a":
                 by_curve[cv.name]["ms_2_20_table_in_l2"] = \
                     r["phase_a_l2"]["ms"]
+            if k == "buckets":
+                by_curve[cv.name]["ms_2_20_long_runs"] = \
+                    r["buckets"]["long_runs"]["ms"]
+                by_curve[cv.name]["replaced_point_ops_bound_ms_2_20"] = \
+                    r["buckets"]["replaced_point_ops_bound_ms"]
         res[k] = dict(res[k], by_curve=by_curve)
-        unit = "call of its launches" if k in CALL_LAUNCHES else "launch"
+        unit = "call of its launches" if k in ("buckets", "wscan") \
+            else "launch"
         log(f"[kernels by curve] {k}: " + "; ".join(
             f"{c} {v['ms']:.4f} ms a {unit} (bound {v['bound_ms']:.4f}, "
             f"plain {v['plain_ms']}), {v['launches']} launches, ptxas "
@@ -1797,7 +2022,17 @@ def main() -> int:
                if "bound_ms_2_20" in v else "")
             + (f", 2^20 with the table in L2 {v['ms_2_20_table_in_l2']:.4f} ms"
                if "ms_2_20_table_in_l2" in v else "")
+            + (f", 2^20 with 8 pool scalars {v['ms_2_20_long_runs']:.4f} ms"
+               f" (the point-op launches it replaced: bound "
+               f"{v['replaced_point_ops_bound_ms_2_20']:.4f} ms)"
+               if "ms_2_20_long_runs" in v else "")
             for c, v in by_curve.items()))
+
+    log("[kernels] hist, device ms a launch (2^16 / 2^20, BN254's digits): "
+        f"the main path's digits {res['hist'].get('ms')} / "
+        f"{res20['hist'].get('ms')}, one digit a window "
+        f"{res['hist']['one_digit'].get('ms')} / "
+        f"{res20['hist']['one_digit'].get('ms')}")
 
     # the NTT kernels: each scalar field's device ms a launch, launches on
     # its paths (four-step, radix-2, stagewise), bound, plain ms and its
@@ -1841,7 +2076,7 @@ def main() -> int:
                     "bls_msm_counts": bls_counts_msm,
                     "bls_kernels": bls_res,
                     "bn254_registers_differ": bn254_registers,
-                    "stages": stages, "busy": busy,
+                    "stages": stages, "busy": busy, "point_api": point_api,
                     "point_ops_variants": res["point_ops_variants"],
                     "small_ntt_k64": res["small_ntt_k64"],
                     "dft_k4": res["dft_k4"], "msm_2_20_shapes": res20,

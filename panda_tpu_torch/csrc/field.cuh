@@ -122,7 +122,6 @@ PT_FN uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
                : "=r"(r) : "r"(a), "r"(b), "r"(c));
   return r;
 }
-PT_FN void atomic_inc(int32_t* p) { atomicAdd(p, 1); }
 
 #else  // host emulation: one carry flag, PTX semantics
 
@@ -170,7 +169,6 @@ inline uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
 inline uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
   return (uint32_t)((((uint64_t)a * b) >> 32) + c + host_cf());
 }
-inline void atomic_inc(int32_t* p) { *p += 1; }
 
 #endif
 
@@ -627,6 +625,14 @@ PT_FN void store_pt(uint32_t* x, uint32_t* y, uint32_t* z, int64_t i,
   store_fe(y, i, stride, v.y);
   store_fe(z, i, stride, v.z);
 }
+
+// The three coordinate tables of a batch of points, read-only and written.
+struct cpts {
+  const uint32_t *x, *y, *z;
+};
+struct mpts {
+  uint32_t *x, *y, *z;
+};
 
 #define PTT_M(a, b) mont_mul<F>(a, b)
 #define PTT_A(a, b) add_mod<F>(a, b)

@@ -44,13 +44,6 @@
 
 namespace ptt {
 
-struct cpts {
-  const uint32_t *x, *y, *z;
-};
-struct mpts {
-  uint32_t *x, *y, *z;
-};
-
 // Segment i of window w: (run, acc) as above, as suffix sums: with
 // S_j = sum_{j' >= j} x_e, acc = sum_{k >= 1 - base} S_k + sum_j p_e.  A
 // step's two adds (acc += S_{j+1} and S_j = S_{j+1} + x_j) are independent,

@@ -31,8 +31,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build" / "panda_tpu_torch"
-KERNELS = ("digits", "hist", "phase_a", "point_ops", "wscan", "fmul", "dft",
-           "small_ntt", "dg3")
+KERNELS = ("digits", "hist", "phase_a", "buckets", "point_ops", "wscan",
+           "fmul", "dft", "small_ntt", "dg3")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -182,9 +182,9 @@ def launch(name: str, symbol: str, argtypes, args, device: torch.device):
 def resident_threads(name: str, symbol: str, kid: int,
                      device: torch.device) -> int:
     """Threads of one full wave of kernel library ``name``'s kernel ``kid``
-    (a curve or field id) on ``device``: the device's SMs times the blocks
-    an SM that the build's registers and shared memory allow, as its
-    function ``symbol`` reports them."""
+    (a curve or field id; for hist, its bin count) on ``device``: the
+    device's SMs times the blocks an SM that the build's registers and
+    shared memory allow, as its function ``symbol`` reports them."""
     f = _fn(name, symbol, [I32, ctypes.POINTER(ctypes.c_int)])
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
@@ -230,10 +230,10 @@ def on_cpu(name: str, t: torch.Tensor) -> bool:
 # order of their field ids (csrc/field.cuh: 0 is Fr254, 1 is Fr377, 2 is
 # Fr381).
 NTT_FIELDS = ("bn254_fr", "bls12_377_fr", "bls12_381_fr")
-# The curves the MSM point kernels (phase_a, point_ops, wscan) are built for,
-# in the order of their curve ids (csrc/field.cuh: Bn254, Bls12_377,
-# Bls12_381), and the scalar fields of the digits kernel, in the order of its
-# field ids (Fr254, Fr377, Fr381).
+# The curves the MSM point kernels (phase_a, buckets, point_ops, wscan) are
+# built for, in the order of their curve ids (csrc/field.cuh: Bn254,
+# Bls12_377, Bls12_381), and the scalar fields of the digits kernel, in the
+# order of its field ids (Fr254, Fr377, Fr381).
 MSM_CURVES = ("bn254", "bls12_377", "bls12_381")
 MSM_FIELDS = ("bn254_fr", "bls12_377_fr", "bls12_381_fr")
 

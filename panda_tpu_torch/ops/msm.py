@@ -10,9 +10,9 @@ Counterpart of ``panda_tpu/ops/msm.py`` with the same decomposition:
    each finished run (``ops/phase_a``, kernel ``csrc/phase_a.cu``);
 4. bucket b's run ends at hi_b = #(digit <= b) (histogram kernel
    ``csrc/hist.cu`` plus a cumsum, or ``searchsorted`` below D = 512), so
-   the dense bucket table is a gather of the emission stream, plus a
-   segmented scan over the lanes' tails and one complete add
-   (``csrc/point_ops.cu``);
+   the dense bucket table is the emission at hi_b plus the total of the
+   lanes' tails with key b: two launches of ``csrc/buckets.cu`` (a
+   segmented reduction of the tails, then a thread a bucket);
 5. the weighted reduction sum_d d B_d per window (``csrc/wscan.cu``);
 6. Horner across windows on the host, in big integers.
 
@@ -33,6 +33,7 @@ from ..fields import mont
 from ..fields.config import FieldSpec
 from ..reference import curve_ref
 from . import _ext
+from ._ext import I32, I64, P
 from . import digits as digits_ops
 from . import hist as hist_ops
 from . import phase_a
@@ -162,9 +163,10 @@ def sorted_streams(digits, signs, c: int, m: int) -> Streams:
     return Streams(step_major(keys), step_major(sidx), hi, n, D)
 
 
-def assemble_buckets(curve: CurveSpec, st: Streams, ekeys, epts, tkeys,
-                     tpts) -> ProjPoint:
-    """Dense bucket tables (L, W, D) from phase A's emissions and tails."""
+def assemble_buckets_plain(curve: CurveSpec, st: Streams, ekeys, epts,
+                           tkeys, tpts) -> ProjPoint:
+    """Plain version of :func:`assemble_buckets`: gathers, a segmented scan
+    over the lanes' tails and one complete add over the tables."""
     W, steps, m = st.keys.shape
     P, D, L = steps * m, st.D, epts.x.shape[0]
     dev = ekeys.device
@@ -184,17 +186,104 @@ def assemble_buckets(curve: CurveSpec, st: Streams, ekeys, epts, tkeys,
 
     # Tails: merge the tails of lanes a bucket spans with one segmented
     # scan; the run's last lane holds the total.  Lanes whose last entry is
-    # padding carry the dead key: n // steps lanes are live.
+    # padding carry the dead key D + 1; the tail keys are sorted, so the
+    # run of b ends before #(tail key <= b).
     tstarts = torch.cat([torch.ones((W, 1), dtype=torch.bool, device=dev),
                          tkeys[:, 1:] != tkeys[:, :-1]], dim=1)
     tsum = red.segmented_prefix_scan(curve, tpts, tstarts)
-    tpos = _locate_runs(tkeys, tkeys, D, st.n // steps) - 1  # may be -1
+    tpos = torch.searchsorted(tkeys.contiguous(),
+                              targets.expand(W, D).contiguous(),
+                              right=True) - 1                # may be -1
     tslot = tpos.clamp(0, m - 1)
     valid_t = (tkeys.gather(1, tslot) == targets) & (tpos >= 0)
     gts = tslot.unsqueeze(0).expand(L, W, D)
     tpick = ProjPoint(*(a.gather(2, gts) for a in tsum))
     tails = cp.select(valid_t, tpick, ident)
-    return cp.add(curve, interior, tails)
+    return cp.add_plain(curve, interior, tails)
+
+
+# csrc/buckets.cu's tails launch: blocks of at most _BUCKETS_BLOCK threads
+# (its kThreads), each thread a chunk of consecutive lanes, the fewest that
+# let one wave of the card hold the launch: each lane of a chunk may cost
+# its thread a dependent add (a block whose runs outgrow it takes longer
+# chunks).
+_BUCKETS_BLOCK = 128
+
+
+class BucketPlan(NamedTuple):
+    """The tails launch: ``blocks`` blocks a window of ``threads`` threads,
+    ``chunk`` consecutive lanes a thread (block g from the first run that
+    starts at or after lane g x threads x chunk)."""
+    chunk: int
+    threads: int
+    blocks: int
+
+
+def bucket_plan(windows: int, m: int, wave: int) -> BucketPlan:
+    """The tails launch for ``windows`` windows of m lanes on a card that
+    holds ``wave`` threads of it at once."""
+    chunk = 1
+    while chunk < m and windows * -(-m // (_BUCKETS_BLOCK * chunk)) * \
+            _BUCKETS_BLOCK > wave:
+        chunk += 1
+    T = min(_BUCKETS_BLOCK, 1 << max((-(-m // chunk) - 1).bit_length(), 0))
+    return BucketPlan(chunk, T, -(-m // (T * chunk)))
+
+
+def buckets_threads(curve: CurveSpec, device: torch.device) -> int:
+    """Threads of one full wave of csrc/buckets.cu's tails launch for
+    ``curve`` on the card ``device``, as the kernel's build allows."""
+    return _ext.resident_threads(
+        "buckets", "ptt_buckets_threads",
+        _ext.kernel_field("assemble_buckets", curve, _ext.MSM_CURVES),
+        device)
+
+
+def bucket_launch(curve: CurveSpec, plan: BucketPlan, st: Streams, ekeys,
+                  epts, tkeys, tpts, out, fill: bool) -> None:
+    """One launch of csrc/buckets.cu into the (L, W, D) tables ``out``: the
+    buckets with tails (``fill`` False: plan's tails launch) or the others
+    (``fill`` True: their interior emission or the identity)."""
+    W, steps, m = st.keys.shape
+    cid = _ext.kernel_field("assemble_buckets", curve, _ext.MSM_CURVES)
+    _ext.launch("buckets", "ptt_buckets", [P] * 12 + [I64] * 4 + [I32] * 5,
+                [*(a.data_ptr() for a in epts), ekeys.data_ptr(),
+                 *(a.data_ptr() for a in tpts), tkeys.data_ptr(),
+                 st.hi.data_ptr(), *(a.data_ptr() for a in out), W, steps,
+                 m, plan.blocks, st.D, plan.chunk, plan.threads, int(fill),
+                 cid], ekeys.device)
+
+
+def assemble_buckets(curve: CurveSpec, st: Streams, ekeys, epts, tkeys,
+                     tpts) -> ProjPoint:
+    """Dense bucket tables (L, W, D) from phase A's emissions and tails.
+    CPU tensors take :func:`assemble_buckets_plain`; CUDA tensors the two
+    launches of csrc/buckets.cu (the buckets with tails, then the others),
+    planned by :func:`bucket_plan` for the threads the kernel's build holds
+    at once.  The kernel's projective representatives differ from the
+    plain version's: compare with ``cp.eq``."""
+    if _ext.on_cpu("assemble_buckets", ekeys):
+        return assemble_buckets_plain(curve, st, ekeys, epts, tkeys, tpts)
+    W, steps, m = st.keys.shape
+    epts = ProjPoint(*(a.contiguous() for a in epts))
+    tpts = ProjPoint(*(a.contiguous() for a in tpts))
+    ekeys, tkeys = ekeys.contiguous(), tkeys.contiguous()
+    _ext.check_cuda("assemble_buckets", ekeys, tkeys, *epts, *tpts)
+    _ext.check_words("assemble_buckets", curve.fp, epts.x)
+    L = epts.x.shape[0]
+    if ekeys.shape != (W, steps, m) or tkeys.shape != (W, m) or \
+            epts.x.shape != (L, W, steps, m) or tpts.x.shape != (L, W, m):
+        raise ValueError("assemble_buckets: shape mismatch")
+    if st.hi.dtype != torch.int64 or st.hi.shape != (W, st.D) or \
+            st.hi.device != ekeys.device or not st.hi.is_contiguous():
+        raise ValueError("assemble_buckets: hi must be contiguous (W, D) "
+                         "int64 on the tensors' device")
+    plan = bucket_plan(W, m, buckets_threads(curve, ekeys.device))
+    out = ProjPoint(*(torch.empty((L, W, st.D), dtype=torch.int32,
+                                  device=ekeys.device) for _ in range(3)))
+    for fill in (False, True):
+        bucket_launch(curve, plan, st, ekeys, epts, tkeys, tpts, out, fill)
+    return out
 
 
 def _bucket_tables(curve: CurveSpec, px, py, digits, signs, c: int,

@@ -2,11 +2,13 @@
 
 Counterpart of ``panda_tpu/ops/reduce.py``.  PyTorch runs eagerly, so the
 JAX package's one-add-instance ``fori_loop``/``scan`` bodies become plain
-Python loops; each step is one batched point op (one kernel launch on the
-GPU).  The weighted reduction :func:`weighted_window_sum` runs on the
-device as two launches of ``csrc/wscan.cu`` (segment scans and a block
-combine in shared memory, then the blocks' partial sums); its plain
-version, beside it, is the JAX package's blocked decomposition.
+Python loops of plain point adds: the plain versions.  The weighted
+reduction :func:`weighted_window_sum` runs on the device as two launches
+of ``csrc/wscan.cu`` (segment scans and a block combine in shared memory,
+then the blocks' partial sums); its plain version, beside it, is the JAX
+package's blocked decomposition.  The segmented scan serves the plain
+bucket assembly (``ops/msm.assemble_buckets_plain``), whose device form is
+``csrc/buckets.cu``.
 """
 
 from __future__ import annotations
@@ -37,15 +39,16 @@ def _last(pts: ProjPoint, sl) -> ProjPoint:
 
 def segmented_prefix_scan(curve: CurveSpec, pts: ProjPoint,
                           seg_start: torch.Tensor) -> ProjPoint:
-    """Inclusive segmented prefix sums along the last axis (Hillis-Steele).
-    ``seg_start`` is True where a segment begins."""
+    """Inclusive segmented prefix sums along the last axis (Hillis-Steele,
+    plain adds): the plain bucket assembly's tail scan.  ``seg_start`` is
+    True where a segment begins."""
     n = pts.x.shape[-1]
     idx = torch.arange(n, device=pts.x.device)
     f = seg_start.to(torch.bool)
     for i in range(_ceil_log2(n)):
         s = 1 << i
         in_range = idx >= s
-        added = cp.add(curve, pts, _roll(pts, s))
+        added = cp.add_plain(curve, pts, _roll(pts, s))
         pts = cp.select(in_range & ~f, added, pts)
         f = torch.where(in_range, f | torch.roll(f, s, dims=-1), f)
     return pts

@@ -1,25 +1,30 @@
-"""Builds of MSM phase A and of the weighted reduction, built and timed on
-the card.
+"""Builds of MSM phase A, of the weighted reduction and of the bucket
+assembly, built and timed on the card.
 
-    python -m panda_tpu_torch.tools.occupancy_sweep
+    python -m panda_tpu_torch.tools.occupancy_sweep [phase_a|wscan|buckets ...]
 
-Builds ``csrc/phase_a.cu`` and ``csrc/wscan.cu`` with other ``-D`` flags
-(:data:`BUILDS`: the blocks of 128 threads an SM that the launch bounds ask
-for, phase A's ring depth, the word counts for which the weighted
-reduction overlaps its scaling with its tree), prints each build's
-registers, stack and spills from its ``ptxas -v`` report, and times each
-build at the MSM's 2^16 and 2^20 shapes for each curve: device ms a call
-from CUDA events over a few calls, with the geometry each build's own
-occupancy gives (``phase_a.resident_threads``,
-``reduce.wscan_threads``).  Every build's bucket tables and
-window sums must equal the default build's after affine normalisation.
-The first build of each kernel is the default.  Raises without a GPU.
+Builds ``csrc/phase_a.cu``, ``csrc/wscan.cu`` and ``csrc/buckets.cu`` (or
+those named) with other ``-D`` flags (:data:`BUILDS`: the blocks of 128
+threads an SM that the launch bounds ask for, phase A's ring depth, the
+word counts for which the weighted reduction overlaps its scaling with its
+tree), prints each build's registers, stack and spills from its ``ptxas
+-v`` report, and times each build at the MSM's 2^16 and 2^20 shapes for
+each curve: device ms a call from CUDA events over a few calls, with the
+geometry each build's own occupancy gives (``phase_a.resident_threads``,
+``reduce.wscan_threads``, ``msm.buckets_threads``).  Inputs: 256 pool
+scalars (a few hundred distinct digits a window); the bucket assembly
+also on a uniform draw of scalars below r (near-uniform digits, as a
+prover's scalars give), both on the default phase A's output.  Every
+build's bucket tables and window sums must equal the default build's after
+affine normalisation.  The first build of each kernel is the default.
+Raises without a GPU.
 """
 
 from __future__ import annotations
 
 import json
 import random
+import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -43,6 +48,8 @@ BUILDS = (
     ("wscan", ("-DPTT_WSCAN_BLOCKS=4",)),
     ("wscan", ("-DPTT_WSCAN_OVERLAP_WORDS=8",)),     # overlap for every curve
     ("wscan", ("-DPTT_WSCAN_OVERLAP_WORDS=13",)),    # overlap for none
+    ("buckets", ()),
+    ("buckets", ("-DPTT_BUCKETS_BLOCKS_8=4", "-DPTT_BUCKETS_BLOCKS_12=3")),
 )
 
 
@@ -60,8 +67,9 @@ def _ms(fn, reps: int) -> float:
 
 
 def _inputs(curve, n: int, device, seed: int = 8):
-    """Bases (L, n) x2 drawn from 256 random points and (8, n) Montgomery
-    scalar words from 256 random scalars."""
+    """Bases (L, n) x2 drawn from 256 random points, (8, n) Montgomery
+    scalar words from 256 random scalars, and (8, n) words of a uniform
+    draw below r."""
     rng, npr = random.Random(seed), np.random.default_rng(seed)
     fp, fr = curve.fp, curve.fr
     pool = [curve_ref.random_point(curve, rng) for _ in range(256)]
@@ -71,50 +79,82 @@ def _inputs(curve, n: int, device, seed: int = 8):
         device)[:, idx].contiguous() for vals in zip(*pool))
     s = mont.words_tensor(mont.ints_to_words(
         fr, [rng.randrange(fr.modulus) for _ in range(256)]), device)
+    u = npr.integers(0, 1 << 32, size=(8, n), dtype=np.uint64)
+    u[7] %= fr.modulus >> 224
     return px, py, s[:, torch.from_numpy(
-        npr.integers(256, size=n)).to(device)].contiguous()
+        npr.integers(256, size=n)).to(device)].contiguous(), \
+        torch.from_numpy(u.astype(np.uint32).view(np.int32)).to(device)
 
 
-def main(device=None, sizes=(16, 20)) -> list:
+def _scanned(curve, scalars, c: int, px, py, pts):
+    """(Streams, *phase A's outputs) of the default build for
+    ``scalars``: the arguments of msm.assemble_buckets after the curve."""
+    mags, negs = msm.signed_digit_arrays(curve.fr, scalars, c)
+    st = msm.sorted_streams(mags, negs, c, msm.default_lanes(
+        px.shape[1], mags.shape[0],
+        phase_a.resident_threads(curve, px.device)))
+    return (st, *phase_a.scan(curve, st.keys, st.sidx, px, py, st.D + 1,
+                              pts))
+
+
+def main(device=None, sizes=(16, 20), kernels=None) -> list:
     """One row a (build, curve, size): the curve's instantiation's
-    registers, stack and spills, its blocks an SM, and device ms a call."""
+    registers, stack and spills, its blocks an SM, and device ms a call;
+    ``kernels`` names the kernels to build (all by default)."""
     if not torch.cuda.is_available():
         raise RuntimeError("occupancy_sweep: no CUDA device")
     device = torch.device(device or "cuda:0")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    with ThreadPoolExecutor(len(BUILDS)) as ex:
-        list(ex.map(lambda b: _ext._build(*b), BUILDS))
+    builds = [b for b in BUILDS if not kernels or b[0] in kernels]
+    with ThreadPoolExecutor(len(builds)) as ex:
+        list(ex.map(lambda b: _ext._build(*b), builds))
     rows = []
     for curve in (BN254, BLS12_377, BLS12_381):
         tag = {"bn254": "Bn254", "bls12_377": "Bls12_377",
                "bls12_381": "Bls12_381"}[curve.name]
         for log_n in sizes:
             n = 1 << log_n
-            px, py, s = _inputs(curve, n, device)
+            px, py, s, su = _inputs(curve, n, device)
             pts = phase_a.point_major(px, py)
             c = msm.window_bits(log_n, bits=curve.fr.bits)
-            mags, negs = msm.signed_digit_arrays(curve.fr, s, c)
-            W = mags.shape[0]
-            want = {}
-            for name, defines in BUILDS:
+            pool = _scanned(curve, s, c, px, py, pts)
+            uniform = _scanned(curve, su, c, px, py, pts)
+            st, W = pool[0], pool[0].keys.shape[0]
+            tables = msm.assemble_buckets(curve, *pool)
+            want = {"phase_a": tables,
+                    "buckets": (tables,
+                                msm.assemble_buckets(curve, *uniform)),
+                    "wscan": reduce.weighted_window_sum(curve, tables)}
+            for name, defines in builds:
+                extra = {}
                 with _ext.variant(name, defines):
                     if name == "phase_a":
                         wave = phase_a.resident_threads(curve, device)
                         st = msm.sorted_streams(
-                            mags, negs, c, msm.default_lanes(n, W, wave))
+                            *msm.signed_digit_arrays(curve.fr, s, c), c,
+                            msm.default_lanes(n, W, wave))
                         call = lambda: phase_a.scan(  # noqa: E731
                             curve, st.keys, st.sidx, px, py, st.D + 1, pts)
                         got = msm.assemble_buckets(curve, st, *call())
                         reps = 3
+                    elif name == "buckets":
+                        wave = msm.buckets_threads(curve, device)
+                        call = lambda: msm.assemble_buckets(  # noqa: E731
+                            curve, *pool)
+                        got = (call(), msm.assemble_buckets(curve, *uniform))
+                        extra["ms_uniform_draw"] = _ms(
+                            lambda: msm.assemble_buckets(curve, *uniform), 20)
+                        reps = 20
                     else:
                         wave = reduce.wscan_threads(curve, device)
                         call = lambda: reduce.weighted_window_sum(  # noqa
-                            curve, want["phase_a"])
+                            curve, tables)
                         got = call()
                         reps = 10
                     ms = _ms(call, reps)
-                want.setdefault(name, got)
-                if not bool(cp.eq(curve, got, want[name]).all()):
+                pairs = zip(got, want[name]) if name == "buckets" else \
+                    [(got, want[name])]
+                if not all(bool(cp.eq(curve, a, b).all()) for a, b in pairs):
                     raise AssertionError(f"{name} {defines} ({curve.name}, "
                                          f"2^{log_n}): differs from the "
                                          "default build")
@@ -124,7 +164,7 @@ def main(device=None, sizes=(16, 20)) -> list:
                        "blocks_an_sm": wave / (sms * BLOCK),
                        "curve": curve.name, "log_n": log_n,
                        "default": not defines,
-                       "registers_stack_spills": regs, "ms": ms}
+                       "registers_stack_spills": regs, "ms": ms, **extra}
                 print(json.dumps(row), flush=True)
                 rows.append(row)
     return rows
@@ -133,4 +173,4 @@ def main(device=None, sizes=(16, 20)) -> list:
 if __name__ == "__main__":
     print(f"[occupancy_sweep] {torch.cuda.get_device_name(0)}" if
           torch.cuda.is_available() else "", flush=True)
-    main()
+    main(kernels=sys.argv[1:] or None)

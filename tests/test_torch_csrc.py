@@ -27,7 +27,7 @@ from panda_tpu_torch.curves.point import AffinePoint, ProjPoint
 from panda_tpu_torch.fields import mont
 from panda_tpu_torch.fields.config import (BLS12_377_FR, BLS12_381_FR,
                                            BN254_FP, BN254_FR)
-from panda_tpu_torch.ops import (_ext, digits, fmul, hist, ntt_fused,
+from panda_tpu_torch.ops import (_ext, digits, fmul, hist, msm, ntt_fused,
                                  ntt_pallas, phase_a, reduce)
 from panda_tpu_torch.reference import curve_ref
 from panda_tpu_torch.tools import profile_gather4
@@ -43,6 +43,7 @@ HARNESS = r"""
 #include "digits.cu"
 #include "hist.cu"
 #include "phase_a.cu"
+#include "buckets.cu"
 #include "wscan.cu"
 #include "fmul.cu"
 #include "dft.cu"
@@ -195,6 +196,18 @@ template <class C> struct PhaseA {
     }
   }
 };
+// buckets.cu's launch 1 block by block, or launch 2's threads one after
+// another.
+template <class C> struct Buckets {
+  static void run(In ex, In ey, In ez, In ekeys, In tx, In ty, In tz,
+                  In tkeys, const int64_t* hi, Out ox, Out oy, Out oz,
+                  int64_t W, int64_t S, int64_t m, int64_t G, int D,
+                  int chunk, int T, int fill) {
+    const bk_tables tb{{ex, ey, ez}, ekeys, hi, {ox, oy, oz}, W, S, m, D};
+    if (!fill) return bk_tails_host<C>({tx, ty, tz}, tkeys, tb, chunk, T, G);
+    for (int64_t i = 0; i < W * D; ++i) bk_fill_elem<C>(tb, tkeys, i);
+  }
+};
 template <class C> struct Wscan {
   static void run(In xx, In xy, In xz, In px, In py, In pz, Out Px, Out Py,
                   Out Pz, Out Xx, Out Xy, Out Xz, int64_t W, int64_t E,
@@ -233,8 +246,18 @@ void h_digits(In s, Out mags, uint8_t* negs, int64_t n, int c, int W,
               int field) {
   by_curve<Digits>(field, s, mags, negs, n, c, W);
 }
-void h_hist(In d, int32_t* counts, int64_t W, int64_t N, int D) {
-  for (int64_t i = 0; i < W * N; ++i) hist_elem(d, counts, i, N, D);
+// The kernel's W * G blocks of T threads one after another.
+void h_hist(In d, int32_t* counts, int64_t W, int64_t N, int D, int64_t G,
+            int T, int unroll) {
+  for (int64_t blk = 0; blk < W * G; ++blk)
+    hist_block_host(d, counts, N, D, G, blk, T, unroll);
+}
+void h_buckets(In ex, In ey, In ez, In ekeys, In tx, In ty, In tz,
+               In tkeys, const int64_t* hi, Out ox, Out oy, Out oz, int64_t W,
+               int64_t S, int64_t m, int64_t G, int D, int chunk, int T,
+               int fill, int curve) {
+  by_curve<Buckets>(curve, ex, ey, ez, ekeys, tx, ty, tz, tkeys, hi, ox, oy,
+                    oz, W, S, m, G, D, chunk, T, fill);
 }
 void h_phase_a(In keys, In sidx, In pts, Out ek, Out ex, Out ey, Out ez,
                Out tk, Out tx, Out ty, Out tz, int64_t W, int64_t m,
@@ -382,7 +405,8 @@ def test_field_ids_match_ntt_fields(name):
 
 
 @pytest.mark.parametrize("name,launchers", [("digits", 1), ("point_ops", 3),
-                                            ("wscan", 1), ("phase_a", 1)])
+                                            ("wscan", 1), ("phase_a", 1),
+                                            ("buckets", 2)])
 def test_ids_match_msm_curves_and_fields(name, launchers):
     """Each MSM launcher maps id i to the struct of _ext.MSM_FIELDS[i]
     (digits) or _ext.MSM_CURVES[i] (the point kernels), every id once a
@@ -535,15 +559,41 @@ def test_signed_digits_bit_identical(host, fr, c):
     np.testing.assert_array_equal(negs.astype(bool), _np(en))
 
 
+def _hist_host(host, d, D, G, T, unroll=4):
+    """hist.cu's W * G blocks of T threads on the host, thread by thread."""
+    W, N = d.shape
+    counts = np.zeros((W, D), np.int32)
+    _call(host.h_hist, d, counts, W, N, ("i32", D), G, ("i32", T),
+          ("i32", unroll))
+    return counts
+
+
 def test_hist_counts_identical(host):
+    """hist.cu's blocks (shared-memory bins, one add a digit, the flush)
+    against the plain version: digit 0 and dead keys ignored, slices that
+    end mid-iteration, runs of equal digits."""
     rng = np.random.default_rng(5)
     W, N, D = 3, 3000, 512
     d = rng.integers(0, D + 2, size=(W, N)).astype(np.int32)
     d[:, :40] = 0
-    counts = np.zeros((W, D), np.int32)
-    _call(host.h_hist, d, counts, W, N, ("i32", D))
-    np.testing.assert_array_equal(counts,
-                                  _np(hist.hist_counts_plain(torch.from_numpy(d), D)))
+    d[1, 100:400] = 9
+    want = _np(hist.hist_counts_plain(torch.from_numpy(d), D))
+    for G, T in ((1, 32), (3, 64), (7, 128)):
+        np.testing.assert_array_equal(_hist_host(host, d, D, G, T), want)
+
+
+def test_hist_counts_one_digit_stream(host):
+    """Every digit the same at D = 32768 (the 2^20 MSM's bucket count) and
+    at D = 4096 (2^16's): every add of a block to one bin, the flush one
+    atomic a block."""
+    W, N = 2, 5000
+    for D in (1 << 15, 1 << 12):
+        d = np.ones((W, N), np.int32)
+        d[1] = D
+        got = _hist_host(host, d, D, 3, 64)
+        np.testing.assert_array_equal(
+            got, _np(hist.hist_counts_plain(torch.from_numpy(d), D)))
+        assert got[0, 0] == N and got[1, D - 1] == N and got.sum() == W * N
 
 
 # (W, S, m, depth, T): S not a multiple of the ring depth with two blocks,
@@ -610,6 +660,106 @@ def test_phase_a_bit_identical_bls(host, curve):
     rows in six 16-byte chunks, emissions and tails."""
     for geom in PHASE_A_GEOMETRIES:
         _phase_a_case(host, curve, *geom)
+
+
+def _buckets_host(host, curve, st, ek, ep, tk, tp, plan):
+    """assemble_buckets' two launches on the host: buckets.cu's tails
+    launch block by block, then its fill launch's threads, into tables that
+    start as 0xA5 filler; (L, W, D) tables out."""
+    W, S, m = st.keys.shape
+    L, D = mont.n_words(curve.fp), st.D
+    assert plan.blocks * plan.threads * plan.chunk >= m
+    out = [np.full((L, W, D), 0xA5A5A5A5, np.uint32) for _ in range(3)]
+    for fill in (0, 1):
+        _call(host.h_buckets, *map(_np, ep), _np(ek), *map(_np, tp), _np(tk),
+              _np(st.hi), *out, W, S, m, plan.blocks, ("i32", D),
+              ("i32", plan.chunk), ("i32", plan.threads), ("i32", fill),
+              _curve_id(curve))
+    return ProjPoint(*(torch.from_numpy(o.view(np.int32)) for o in out))
+
+
+def _bucket_digits(case, rng):
+    """(digits, signs, c, m, plans, bases) of a bucket-assembly case; the
+    bases are an index into a pool of 6 points."""
+    if case == "one key over every lane":
+        W, n, c, m = 2, 48, 5, 16                   # 3 steps, no padding
+        d = np.full((W, n), 3)
+        d[1] = rng.integers(0, 17, size=n)
+        plans = [(2, 4), (1, 2), (4, 4)]            # 2, 8 and 1 blocks
+    elif case == "dead lanes, empty buckets, runs across chunks":
+        W, n, c, m = 2, 50, 7, 12                   # 5 steps, 10 padded
+        d = rng.integers(0, 12, size=(W, n)) * 5   # most buckets empty
+        d[:, :4] = 0
+        d[0, 10:32] = 9                             # a run of ~4 lanes
+        d[1, 20:27] = 64                            # B_D, one step-run
+        plans = [(1, 4), (2, 2), (3, 2)]
+    elif case == "a chunk's first run ends before another":
+        # two entries a lane; the lanes' tail keys 1 1 1 2 3 3 4 5 5 5 6 7,
+        # so with 3 lanes a thread the last chunk ends run 5 (begun in the
+        # chunk before) and then run 6
+        W, n, c, m = 1, 24, 4, 12
+        d = np.array([1] * 6 + [2, 2, 2, 3, 3, 3, 4, 4, 4, 5] + [5] * 4 +
+                     [6, 6, 7, 7])[None]
+        plans = [(3, 4), (2, 2), (1, 8)]
+    else:       # "identity inputs": one base point, alternating signs
+        W, n, c, m = 1, 41, 4, 10                   # 5 steps, 9 padded
+        d = np.where(np.arange(n) < 26, 1, 2)[None]
+        plans = [(1, 4), (2, 2)]
+    signs = rng.integers(0, 2, size=d.shape).astype(bool)
+    bases = rng.integers(6, size=n)
+    if case == "identity inputs":
+        signs[0] = np.arange(n) % 2 == 1
+        bases[:] = 0
+    return d, signs, c, m, plans, bases
+
+
+BUCKET_CASES = ["one key over every lane",
+                "dead lanes, empty buckets, runs across chunks",
+                "a chunk's first run ends before another",
+                "identity inputs"]
+
+
+@pytest.mark.parametrize("curve", [BN254, BLS12_381], ids=lambda c: c.name)
+@pytest.mark.parametrize("case", BUCKET_CASES)
+def test_bucket_assembly_point_equal(host, curve, case):
+    """buckets.cu's tails launch (blocks from a run's start, chunks in
+    registers, the block's segmented scan in shared memory, the interior
+    emission added where a run of tails ends) and its fill launch (the
+    other buckets' emission or the identity) on the host, point-equal to
+    assemble_buckets_plain on phase A's plain outputs, whose emissions are
+    0xA5 filler where no run ended, at several (chunk, threads) plans: runs
+    as long as every lane, across chunk and block edges, lanes that end in
+    padding, empty, interior-only and tail-only buckets, and sums that
+    cancel to the identity."""
+    rng = np.random.default_rng(BUCKET_CASES.index(case))
+    d, signs, c, m, plans, bases = _bucket_digits(case, rng)
+    _, pool = _points(6, 29, curve)
+    px, py = pool.x[:, bases].contiguous(), pool.y[:, bases].contiguous()
+    st = msm.sorted_streams(torch.from_numpy(d.astype(np.int32)),
+                            torch.from_numpy(signs), c, m)
+    ek, ep, tk, tp = phase_a.scan_plain(curve, st.keys, st.sidx, px, py,
+                                        st.D + 1)
+    ended = (ek != st.D + 1).unsqueeze(0)
+    filler = torch.tensor(0xA5A5A5A5 - (1 << 32), dtype=torch.int32)
+    ep = ProjPoint(*(torch.where(ended, a, filler) for a in ep))
+    want = msm.assemble_buckets_plain(curve, st, ek, ep, tk, tp)
+    W, S, _ = st.keys.shape
+    live = (st.keys >= 1) & (st.keys <= st.D)
+    assert int(live.sum()) > 0 and S > 1
+    for chunk, T in plans:
+        plan = msm.BucketPlan(chunk, T, -(-m // (T * chunk)))
+        got = _buckets_host(host, curve, st, ek, ep, tk, tp, plan)
+        assert bool(cp.eq(curve, got, want).all()), (chunk, T)
+    ident = cp.is_identity(curve, want)
+    if case == "one key over every lane":
+        assert (tk[0] == 3).all() and not bool(ident[0, 2])
+    elif case == "dead lanes, empty buckets, runs across chunks":
+        assert (tk == st.D + 1).any() and bool(ident.any())
+        assert int((tk[0] == 9).sum()) >= 3
+    elif case == "a chunk's first run ends before another":
+        assert tk[0].tolist() == [1, 1, 1, 2, 3, 3, 4, 5, 5, 5, 6, 7]
+    else:
+        assert bool(ident[0, 0]) and not bool(ident[0, 1])
 
 
 def _wscan_host(host, curve, buckets, plan):

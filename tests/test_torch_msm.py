@@ -207,7 +207,7 @@ def test_occupancy_sweep_builds_change_the_source():
         for d in defines:
             macro = re.fullmatch(r"-D(\w+)=\d+", d).group(1)
             assert f"#ifndef {macro}" in text, d
-    assert firsts == {"phase_a": (), "wscan": ()}
+    assert firsts == {"phase_a": (), "wscan": (), "buckets": ()}
     with pytest.raises(RuntimeError):
         occupancy_sweep.main()
 
