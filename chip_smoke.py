@@ -28,14 +28,19 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    at (8, 2^20), the DFT at K = 32, nb = 2^15 (the
    four-step 2^20 NTT's passes), forward and with the inverse's scale and
    the canonical pass, and at K = 4, nb = 2^20 (the 2^22 NTT's leaf), and
-   the radix-2 pass small_ntt at K = 256, nb = 2^12 with its T1 table and
-   at K = 64, nb = 2^14 (the radix-2 2^20 NTT's passes), forward and with
-   the inverse's scale and the canonical store, on words that include
-   values >= 2r (for BLS12-381 Fr, whose values stay below r, words >= r
-   only where the kernel reduces at load): equal words, for BN254 Fr,
-   BLS12-377 Fr and BLS12-381 Fr, each timed; the gather
-   probe's dg3 at its four depths R = 8, 32, 256 and 1024 (G = 2^22 /
-   (128 R)): equal words (the kernels line gives R = 8's times).  Each
+   the radix-2 pass small_ntt at the radix-2 2^20 NTT's three passes
+   (K = 256, nb = 2^12 with its T1 table, read as runs of 1; K = 64,
+   nb = 2^14 with its T1 table, runs of 256; the leaf, K = 64 in the
+   natural layout) and the 2^22 NTT's K = 128 middle pass (an odd log_k),
+   each in the layout the recursion hands it and with each launch's blocks
+   and waves, forward and with the inverse's scale and the canonical
+   store, on words that include values >= 2r (for BLS12-381 Fr, whose
+   values stay below r, words >= r only where the kernel reduces at
+   load): equal words, for BN254 Fr, BLS12-377 Fr and BLS12-381 Fr, each
+   timed; the gather probe's dg3 at its four depths R = 8, 32, 256 and
+   1024 (G = 2^22 / (128 R)): equal words, each launch's geometry and its
+   device ms against torch.gather's (the kernels line gives R = 8's
+   times).  Each
    kernel's device time a launch (the median of torch.profiler's CUDA
    kernel records over a batch of calls) and the batch's time from CUDA
    events, beside the least time the card could take (bytes over 3.35
@@ -103,6 +108,7 @@ import contextlib
 import json
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -675,25 +681,35 @@ def const_words(fr, value: int, device):
                              device).reshape(-1)
 
 
+# small_ntt's passes at the radix-2 engine's shapes: (key, log_n of the
+# transform, the pass's index in ntt_pallas.pass_shapes(log_n), the leaf
+# first): the 2^20 NTT's top pass (K = 256 with its T1 table, read as runs
+# of 1), its middle and leaf passes (K = 64), and the 2^22 NTT's middle
+# pass (K = 128, an odd log_k).
+SMALL_NTT_PASSES = (("top", 20, 2), ("k64_t1", 20, 1), ("k64", 20, 0),
+                    ("k128", 22, 1))
+
+
 def ntt_kernel_checks(fr, log_n: int, device,
                       timer: DeviceTimes | None) -> dict:
     """Phase 3 for the NTT's kernels at the 2^log_n NTT's shapes, over the
     field ``fr``: fmul on (8, 2^log_n) (the top level's twiddle product: a
     DFT output < 2r times the table < r), the DFT at K = 32,
     nb = 2^(log_n - 5) (every pass of the four-step 2^20), forward and
-    with the inverse's n^-1 scale and the canonical pass, and the radix-2
-    pass small_ntt at two of the radix-2 engine's shapes (at 2^20: K = 256,
-    nb = 2^12 with its T1 table, the top pass; K = 64, nb = 2^14, the
-    leaf, whose shape the middle pass shares), each in the main path's
+    with the inverse's n^-1 scale and the canonical pass, the DFT at K = 4,
+    nb = 2^log_n (the four-step 2^(log_n + 2) NTT's leaf), and the radix-2
+    pass small_ntt at the radix-2 engine's shapes (SMALL_NTT_PASSES: the
+    2^20 NTT's three passes and the 2^22 NTT's K = 128 middle pass, each
+    in the layout the recursion hands it), each in the main path's
     configuration and in one with the inverse's scale, the canonical store
-    and input words >= 2r reduced at load; and the DFT at K = 4,
-    nb = 2^log_n (the four-step 2^(log_n + 2) NTT's leaf).  Kernel and
+    and (given a T1 table) input words >= 2r reduced at load.  Kernel and
     plain version must give equal words.  Times (``timed``) at the main
     path's configuration (given a ``timer``, which fills in the device ms a
-    launch) beside the batch time: small_ntt's entry is the top pass, its
-    leaf's entry small_ntt_k64, the DFT's K = 4 entry dft_k4, and the
-    torch._int_mm yardstick (the same M x K x N in signed int8, no
-    reduction) is logged beside the DFT."""
+    launch) beside the batch time: small_ntt's entry is the 2^20 top pass,
+    the others small_ntt_<key> with each launch's geometry (blocks, tiles,
+    waves), the DFT's K = 4 entry dft_k4, and the torch._int_mm yardstick
+    (the same M x K x N in signed int8, no reduction) is logged beside the
+    DFT."""
     import torch
     from panda_tpu_torch.fields import mont
     from panda_tpu_torch.ops import fmul, ntt_fused, ntt_pallas
@@ -771,21 +787,33 @@ def ntt_kernel_checks(fr, log_n: int, device,
           lambda: ntt_fused.dft_apply_fused_plain(fr, x, log_k, leaf), 3,
           2 * 32 * K * nb + D * D, 2 * D * D * nb, INT8_OPS_PER_S, "dft")
 
-    scale = const_words(fr, pow(n, -1, r), device)
     errs, timing = [], {}
-    for log_k, with_pre in ((8, True), (6, False)):
-        K, nb = 1 << log_k, 1 << (log_n - log_k)
+    for key, log_m, i in SMALL_NTT_PASSES:
+        log_k, nb, batch, with_pre = ntt_pallas.pass_shapes(log_m)[i]
+        K = 1 << log_k
+        scale = const_words(fr, pow(1 << log_m, -1, r), device)
         tw = ntt_pallas.stage_twiddle_rows(fr, log_k, fr.root_of_unity(log_k),
                                            device)
-        pre = random_words(K * nb, 34, below_r).reshape(8, K, nb).to(device) \
+        B = nb // (batch or nb)
+        pre = random_words(K * B, 34, below_r).reshape(8, K, B).to(device) \
             if with_pre else None
-        lazy = random_words(K * nb, 35, stored).reshape(8, K, nb).to(device)
-        wide = random_words(K * nb, 36).reshape(8, K, nb).to(device)
+
+        def view(words):
+            """(8, K, nb) words as the pass reads them: natural, or the
+            four-step inner output view (8, B, K, batch)."""
+            x = words.reshape(8, K * nb).to(device)
+            return x.reshape(8, B, K, batch) if batch else \
+                x.reshape(8, K, nb)
+        lazy = view(random_words(K * nb, 35, stored))
+        wide = view(random_words(K * nb, 36))
         # (input, pre table, scale, reduce_in, canonical_out): the main
-        # path's configuration first, the top pass (lazy input, table,
-        # canonical store) or the leaf (any words, reduced at load)
-        main = (lazy, pre, None, False, True) if with_pre else \
-            (wide, None, None, True, False)
+        # path's configuration first (the leaf reduces its words at load,
+        # the top pass stores canonical words), then one with the inverse's
+        # scale and the canonical store and, given a table, words >= 2r
+        # reduced at load
+        main = (lazy, pre, None, False, True) if key == "top" else \
+            (wide, None, None, True, False) if not batch else \
+            (lazy, pre, None, False, False)
         other = (wide, pre, scale, True, True) if with_pre else \
             (lazy, None, scale, False, True)
         for xi, *opts in (main, other):
@@ -793,28 +821,36 @@ def ntt_kernel_checks(fr, log_n: int, device,
             p = ntt_pallas.small_ntt_batch_plain(fr, xi, log_k, tw, *opts)
             errs.append(word_err(k, p))
             if not torch.equal(k, p):
-                raise AssertionError(f"small_ntt ({fr.name}) K = {K}: kernel "
+                raise AssertionError(f"small_ntt ({fr.name}) {key}: kernel "
                                      "disagrees with plain")
         if timer is not None:
             xi, *opts = main
             muls = nb * ((log_k - 1) * K // 2 + (K if with_pre else 0))
-            nbytes = 2 * 32 * K * nb + 32 * K * (1 + (nb if with_pre else 0))
+            nbytes = 2 * 32 * K * nb + (32 * K * B if with_pre else 0)
             run = lambda xi=xi, log_k=log_k, tw=tw, opts=opts: (  # noqa
                 ntt_pallas.small_ntt_batch(fr, xi, log_k, tw, *opts))
-            timing[K] = {
+            geo = ntt_pallas.small_ntt_geometry(fr, log_k, nb, device)
+            timing[key] = {
                 "batch_ms": cuda_ms(run, 20),
                 "plain_ms": cuda_ms(lambda: ntt_pallas.small_ntt_batch_plain(
                     fr, xi, log_k, tw, *opts), 2),
-                **bound(nbytes, muls * MONT_MUL_IMADS, IMAD_PER_S)}
-            timer.add(run, 20, KERNEL_NAMES["small_ntt"], timing[K])
-            log(f"{tag} small_ntt K = {K}, nb = {nb}"
-                f"{' + T1 table' if with_pre else ''}: {timing[K]}")
+                **bound(nbytes, muls * MONT_MUL_IMADS, IMAD_PER_S),
+                "geometry": geo, "waves": geo["tiles"] / geo["wave_blocks"]}
+            timer.add(run, 20, KERNEL_NAMES["small_ntt"], timing[key])
+            log(f"{tag} small_ntt {key}: K = {K}, nb = {nb}, "
+                f"{'runs of ' + str(batch) if batch else 'natural'}"
+                f"{', T1 table' if with_pre else ''}: {geo['blocks']} blocks "
+                f"of {geo['threads']} ({geo['wave_blocks']} a wave), "
+                f"{geo['tiles']} tiles of {geo['cols']} columns, "
+                f"{timing[key]['waves']:.2f} waves of tiles, "
+                f"r = {geo['r']}, {geo['rounds']} rounds; {timing[key]}")
     log(f"{tag} small_ntt: max_abs_err={max(errs)}")
     if timer is not None:
-        res["small_ntt"] = timing[256]
+        res["small_ntt"] = timing["top"]
         res["small_ntt"].update({"max_abs_err": max(errs),
                                  "library_ms": None})
-        res["small_ntt_k64"] = timing[64]
+        for key, *_ in SMALL_NTT_PASSES[1:]:
+            res[f"small_ntt_{key}"] = timing[key]
     return res
 
 
@@ -823,12 +859,14 @@ def gather_checks(device, timer: DeviceTimes) -> dict:
     with G = 2^22 / (128 R), tables and indices drawn as the probe draws
     them.  Kernel and plain version must give equal words.  Returns per R:
     max_abs_err, batch ms, plain ms, bound (the table, indices and output,
-    4 bytes each a lookup) and torch.gather's ms on int64 indices converted
-    before the timing; ``timer`` fills in the device ms a launch."""
+    4 bytes each a lookup), torch.gather's batch ms on int64 indices
+    converted before the timing, the launch's geometry and, after the
+    ``timer`` has filled in both device ms a launch (it takes its queue
+    here), torch.gather's device ms and dg3's ratio to it."""
     import torch
     from panda_tpu_torch.tools import profile_gather4 as pg
     g = torch.Generator(device=device).manual_seed(4)
-    by_r = {}
+    by_r, gather = {}, {}
     for R in pg.DEPTHS:
         G = max(1, (1 << 22) // (R * pg.COLS))
         tab, idx = (torch.randint(0, hi, (G, R, pg.COLS), dtype=torch.int32,
@@ -843,10 +881,25 @@ def gather_checks(device, timer: DeviceTimes) -> dict:
             "batch_ms": cuda_ms(lambda: pg.dg3(tab, idx), 20),
             "plain_ms": cuda_ms(lambda: pg.dg3_plain(tab, idx), 20),
             **bound(3 * 4 * G * R * pg.COLS, 0, IMAD_PER_S),
-            "library_ms": cuda_ms(lambda: torch.gather(tab, 1, idx64), 20)}
+            "library_ms": cuda_ms(lambda: torch.gather(tab, 1, idx64), 20),
+            "geometry": pg.dg3_geometry(G, R, device)}
         timer.add(lambda tab=tab, idx=idx: pg.dg3(tab, idx), 20,
                   KERNEL_NAMES["dg3"], row)
+        # torch.gather's device ms a launch: every kernel record of its
+        # batch (it launches one kernel a call)
+        gather[R] = {}
+        timer.add(lambda tab=tab, idx64=idx64: torch.gather(tab, 1, idx64),
+                  20, ("",), gather[R])
         log(f"[kernels] dg3 R = {R}, G = {G}: {row}")
+    timer.take()
+    for R, row in by_r.items():
+        row["library_device_ms"] = gather[R]["ms"]
+        row["ratio_to_gather"] = row["ms"] / gather[R]["ms"]
+        log(f"[kernels] dg3 R = {R}: {row['ms']:.4f} ms a launch against "
+            f"torch.gather's {gather[R]['ms']:.4f} (device ms a launch; "
+            f"{row['library_ms']:.4f} batch): ratio "
+            f"{row['ratio_to_gather']:.3f}; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_ms'] / row['ms']:.2f} of it)")
     return by_r
 
 
@@ -1542,13 +1595,13 @@ def ntt_stage_breakdown(fr, case: dict, reps: int, impl: str = "auto") -> dict:
             la, lb, t1t, tw = plan.levels[level]
             A, B = 1 << la, 1 << lb
             W, M, batch = x.shape
+            # the pass reads the inner level's output where it lies (no
+            # transpose stage)
             y = radix2(level + 1, x.reshape(W, B, A * batch), False)
-            z = timed("transposes", lambda: y.reshape(W, B, A, batch)
-                      .permute(0, 2, 1, 3).contiguous())
-            return timed(f"small_ntt level {level} (K = 2^{la}, T1 at load)"
-                         f"{top}", ntt_pallas.small_ntt_batch, fr,
-                         z.reshape(W, A, B * batch), la, tw, t1t, None, False,
-                         canonical).reshape(W, A * B, batch)
+            return timed(f"small_ntt level {level} (K = 2^{la}, T1 at load, "
+                         f"runs of {batch}){top}", ntt_pallas.small_ntt_batch,
+                         fr, y.reshape(W, B, A, batch), la, tw, t1t, None,
+                         False, canonical).reshape(W, A * B, batch)
 
         tr = radix2 if engine == "pallas" else four_step
         raw = timed("ingest: bytes to rows (host)", lambda: torch.from_numpy(
@@ -1611,11 +1664,15 @@ BN254_REGISTERS = {"digits_kernel": 32, "hist_kernel": 29,
                    "buckets_fill_kernel": 40, "padd_kernel": 96,
                    "pmadd_kernel": 96, "pdbl_kernel": 64,
                    "wscan_kernel": 253}
-# The same for the NTT kernels' BN254 Fr and BLS12-377 Fr instantiations
-# from before they took BLS12-381 Fr.
+# The same for the NTT kernels' BN254 Fr and BLS12-377 Fr instantiations:
+# fmul and the DFT from before they took BLS12-381 Fr; small_ntt as
+# redesigned for the H100, each field's instantiation for the build's r = 8
+# elements a thread at launch bounds 256 x 2 (the BN254 Fr one spills 12
+# bytes, the BLS12-377 Fr one 4) and for r = 2 (K of 2 and 4).
 NTT_REGISTERS = {"fmul_kernel": {"Fr254": 31, "Fr377": 32},
                  "dft_kernel": {"Fr254": 124, "Fr377": 124},
-                 "small_ntt_kernel": {"Fr254": 63, "Fr377": 63}}
+                 "small_ntt_kernel": {"Fr254, 8": 128, "Fr377, 8": 128,
+                                      "Fr254, 2": 64, "Fr377, 2": 64}}
 # The struct a template instantiation names in its mangled entry, by curve.
 INSTANCE = {"bn254": ("Bn254", "Fr254"), "bls12_377": ("Bls12_377", "Fr377"),
             "bls12_381": ("Bls12_381", "Fr381")}
@@ -1623,10 +1680,15 @@ INSTANCE = {"bn254": ("Bn254", "Fr254"), "bls12_377": ("Bls12_377", "Fr377"),
 
 def entry_name(entry: str) -> str:
     """A ptxas entry's kernel name and, for a template, its curve or field
-    struct (mangled names hold both)."""
+    struct (mangled names hold both) and, for small_ntt, its elements a
+    thread (the mangled int argument)."""
     short = next((kn for kns in KERNEL_NAMES.values() for kn in kns
                   if kn in entry), entry[:40])
     tags = [t for ts in INSTANCE.values() for t in ts if t in entry]
+    r = re.search(r"ELi(\d+)E", entry) if short == "small_ntt_kernel" \
+        else None
+    if r:
+        tags = [f"{tags[0]}, {r.group(1)}"]
     return f"{short}<{tags[0]}>" if tags else short
 
 
@@ -1658,8 +1720,8 @@ def bn254_register_check(usage: dict) -> list:
                 differ.append((entry_name(e), regs, stack, st, ld))
     log("[build] BN254 instantiations against their registers "
         f"{BN254_REGISTERS}, and the BN254 Fr and BLS12-377 "
-        f"Fr NTT instantiations against theirs before BLS12-381 Fr "
-        f"{NTT_REGISTERS}: "
+        f"Fr NTT instantiations against theirs (fmul and the DFT from "
+        f"before BLS12-381 Fr, small_ntt as redesigned) {NTT_REGISTERS}: "
         + ("all equal, no stack, no spills" if not differ
            else f"differ: {differ}"))
     return differ
@@ -1799,7 +1861,6 @@ def main() -> int:
                for cv in bls_curves}
     ids = kernel_ids()
     dg3_by_r = gather_checks(device, timer)
-    timer.take()
     res["dg3"] = dict(dg3_by_r[8], max_abs_err=max(
         r["max_abs_err"] for r in dg3_by_r.values()))
     log("[kernels] device ms a launch (torch.profiler), batch ms a call, "
@@ -1965,8 +2026,8 @@ def main() -> int:
 
     bounds = {k: launch_bounds(res20, k) for k in MSM_KERNELS}
     bounds.update({k: launch_bounds(res, k) for k in ("fmul", "dft")})
-    bounds["small_ntt"] = [res["small_ntt"]["bound_ms"]] + \
-        [res["small_ntt_k64"]["bound_ms"]] * 2
+    bounds["small_ntt"] = [res[k]["bound_ms"] for k in (
+        "small_ntt_k64", "small_ntt_k64_t1", "small_ntt")]
     call_bounds = {b["label"]: bounds for b in busy
                    if "2^20" in b["label"] and not b["label"].startswith("BLS")}
     for cv in bls_curves:
@@ -2043,8 +2104,9 @@ def main() -> int:
          (bls_counts, sw_counts["bls12_377"])),
         (BLS12_381, ntt_res["bls12_381"],
          (*b381_counts, sw_counts["bls12_381"])))
-    for k, extra in (("fmul", None), ("dft", "dft_k4"),
-                     ("small_ntt", "small_ntt_k64")):
+    for k, extras in (("fmul", ()), ("dft", ("dft_k4",)),
+                      ("small_ntt", tuple(f"small_ntt_{key}" for key, *_
+                                          in SMALL_NTT_PASSES[1:]))):
         by_field = {}
         for cv, r, path_counts in field_paths:
             row = by_field[cv.fr.name] = {
@@ -2052,7 +2114,7 @@ def main() -> int:
                 "max_abs_err": r[k]["max_abs_err"],
                 "bound_ms": r[k]["bound_ms"], "plain_ms": r[k]["plain_ms"],
                 "ptxas": instance_usage(usage, k, cv.name)}
-            if extra:
+            for extra in extras:
                 row.update({f"{extra}_ms": r[extra]["ms"],
                             f"{extra}_bound_ms": r[extra]["bound_ms"],
                             f"{extra}_plain_ms": r[extra]["plain_ms"]})
@@ -2061,8 +2123,8 @@ def main() -> int:
             f"{f} {v['ms']:.4f} ms a launch (bound {v['bound_ms']:.4f}, "
             f"plain {v['plain_ms']:.3f}), {v['launches']} launches, ptxas "
             f"{[row[1:] for row in v['ptxas']]}"
-            + (f", {extra} {v[extra + '_ms']:.4f} ms (bound "
-               f"{v[extra + '_bound_ms']:.4f})" if extra else "")
+            + "".join(f", {extra} {v[extra + '_ms']:.4f} ms (bound "
+                      f"{v[extra + '_bound_ms']:.4f})" for extra in extras)
             for f, v in by_field.items()))
 
     kernels = [{"name": k, "route": "cuda",
@@ -2078,7 +2140,9 @@ def main() -> int:
                     "bn254_registers_differ": bn254_registers,
                     "stages": stages, "busy": busy, "point_api": point_api,
                     "point_ops_variants": res["point_ops_variants"],
-                    "small_ntt_k64": res["small_ntt_k64"],
+                    "small_ntt_passes": {
+                        key: res[f"small_ntt_{key}"]
+                        for key, *_ in SMALL_NTT_PASSES[1:]},
                     "dft_k4": res["dft_k4"], "msm_2_20_shapes": res20,
                     "dg3_by_R": dg3_by_r, "probe": probe_rows,
                     "phase_a_layout": layout,

@@ -39,6 +39,11 @@
 #pragma once
 #include <stdint.h>
 
+#if !defined(__CUDACC__)
+#include <deque>
+#include <vector>
+#endif
+
 #if defined(__CUDACC__)
 #define PT_FN __device__ __forceinline__
 #define PT_HD __host__ __device__ __forceinline__
@@ -122,6 +127,12 @@ PT_FN uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
                : "=r"(r) : "r"(a), "r"(b), "r"(c));
   return r;
 }
+// Both halves of a b, as one statement (ptxas fuses them into one wide
+// multiply).
+PT_FN void mul_lo_hi(uint32_t a, uint32_t b, uint32_t& lo, uint32_t& hi) {
+  asm volatile("mul.lo.u32 %0, %2, %3; mul.hi.u32 %1, %2, %3;"
+               : "=r"(lo), "=r"(hi) : "r"(a), "r"(b));
+}
 
 #else  // host emulation: one carry flag, PTX semantics
 
@@ -168,6 +179,11 @@ inline uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
 }
 inline uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
   return (uint32_t)((((uint64_t)a * b) >> 32) + c + host_cf());
+}
+inline void mul_lo_hi(uint32_t a, uint32_t b, uint32_t& lo, uint32_t& hi) {
+  const uint64_t p = (uint64_t)a * b;
+  lo = (uint32_t)p;
+  hi = (uint32_t)(p >> 32);
 }
 
 #endif
@@ -445,6 +461,88 @@ PT_FN fe_t<F::N> mont_mul(const fe_t<F::N>& a, const fe_t<F::N>& b) {
   return r;
 }
 
+// One CIOS step of mont_mul_wide: t += a b_i, then t = (t + m p) / 2^32,
+// on t held as two halves, ev (the products of a's and p's even words, lo
+// and hi of each in adjacent words) and od (the odd words' products, one
+// word down).  The step shifts od down a further word as it adds into it
+// and the caller swaps the halves' roles each step, so no word moves on
+// its own; `first` starts from t = 0.
+template <class F>
+PT_FN void mont_wide_step(uint32_t* ev, uint32_t* od, const fe_t<F::N>& a,
+                          uint32_t bi, bool first) {
+  constexpr int N = F::N;
+  if (first) {
+#pragma unroll
+    for (int j = 0; j < N; j += 2) mul_lo_hi(a.w[j + 1], bi, od[j], od[j + 1]);
+#pragma unroll
+    for (int j = 0; j < N; j += 2) mul_lo_hi(a.w[j], bi, ev[j], ev[j + 1]);
+  } else {
+    ev[0] = add_cc(ev[0], od[1]);
+#pragma unroll
+    for (int j = 0; j < N - 2; j += 2) {
+      const uint32_t lo = madc_lo_cc(a.w[j + 1], bi, od[j + 2]);
+      const uint32_t hi = madc_hi_cc(a.w[j + 1], bi, od[j + 3]);
+      od[j] = lo;
+      od[j + 1] = hi;
+    }
+    od[N - 2] = madc_lo_cc(a.w[N - 1], bi, 0);
+    od[N - 1] = madc_hi(a.w[N - 1], bi, 0);
+    ev[0] = mad_lo_cc(a.w[0], bi, ev[0]);
+    ev[1] = madc_hi_cc(a.w[0], bi, ev[1]);
+#pragma unroll
+    for (int j = 2; j < N; j += 2) {
+      ev[j] = madc_lo_cc(a.w[j], bi, ev[j]);
+      ev[j + 1] = madc_hi_cc(a.w[j], bi, ev[j + 1]);
+    }
+    od[N - 1] = addc(od[N - 1], 0);
+  }
+  const uint32_t m = ev[0] * F::ninv;
+  od[0] = mad_lo_cc(m, F::p(1), od[0]);
+  od[1] = madc_hi_cc(m, F::p(1), od[1]);
+#pragma unroll
+  for (int j = 2; j < N; j += 2) {
+    od[j] = madc_lo_cc(m, F::p(j + 1), od[j]);
+    od[j + 1] = madc_hi_cc(m, F::p(j + 1), od[j + 1]);
+  }
+  ev[0] = mad_lo_cc(m, F::p(0), ev[0]);
+  ev[1] = madc_hi_cc(m, F::p(0), ev[1]);
+#pragma unroll
+  for (int j = 2; j < N; j += 2) {
+    ev[j] = madc_lo_cc(m, F::p(j), ev[j]);
+    ev[j + 1] = madc_hi_cc(m, F::p(j), ev[j + 1]);
+  }
+  od[N - 1] = addc(od[N - 1], 0);
+}
+
+// The product of mont_mul, bit for bit (the same CIOS steps, so the same
+// (a b + M p) / R), for the same inputs, with each word product's lo and
+// hi halves adjacent in one carry chain (the even/odd accumulation of the
+// sppark library): ptxas fuses each pair into one IMAD.WIDE.U32.X, about
+// 230 instructions where mont_mul's separate lo and hi chains take about
+// 600 (IMAD, IMAD.HI and a carry add each).  Chains of them run at 95-97%
+// of the 16.7 T/s multiply-add peak for BN254 Fr and 82-83% for the BLS
+// scalar fields, against mont_mul's 55-61% (tools/mul_rate.py on an
+// NVIDIA H100 80GB HBM3 at 700 W).  Used by small_ntt.cu only.
+template <class F>
+PT_FN fe_t<F::N> mont_mul_wide(const fe_t<F::N>& a, const fe_t<F::N>& b) {
+  constexpr int N = F::N;
+  uint32_t ev[N], od[N];
+#pragma unroll
+  for (int i = 0; i < N; i += 2) {
+    mont_wide_step<F>(ev, od, a, b.w[i], i == 0);
+    mont_wide_step<F>(od, ev, a, b.w[i + 1], false);
+  }
+  ev[0] = add_cc(ev[0], od[1]);
+#pragma unroll
+  for (int i = 1; i < N - 1; ++i) ev[i] = addc_cc(ev[i], od[i + 1]);
+  ev[N - 1] = addc(ev[N - 1], 0);
+  fe_t<N> r;
+#pragma unroll
+  for (int j = 0; j < N; ++j) r.w[j] = ev[j];
+  if constexpr (F::canon) r = cond_sub_p<F>(r);
+  return r;
+}
+
 // Montgomery reduction (t + M p) / R of a 9-word t, with the unique M < R:
 // the reduction half of each CIOS step, eight times.  Needs
 // t + 2^32 p < 2^288 (then every step fits 9 words); the result is
@@ -712,6 +810,67 @@ PT_FN xyz_t<C::Fp::N> pt_dbl(const xyz_t<C::Fp::N>& p) {
 #undef PTT_M
 #undef PTT_A
 #undef PTT_S
+
+// Blocks of a persistent launch over `work` units (tiles, slices) with
+// `resident` threads resident at once in blocks of T: the fewest blocks
+// that give every block the same number of units, at most one wave, so no
+// block runs a partial last round.
+PT_HD int64_t even_blocks(int64_t work, int resident, int T) {
+  int64_t wave = resident / T;
+  if (wave < 1) wave = 1;
+  const int64_t per = (work + wave - 1) / wave;
+  return (work + per - 1) / per;
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous 16-byte copies from global to shared memory (phase A's and
+// dg3's rings)
+// ---------------------------------------------------------------------------
+#if defined(__CUDACC__)
+// cp.async: 16-byte copies from global to shared memory, in commit groups.
+struct RingCopy {
+  PT_FN void copy16(uint32_t* dst, const uint32_t* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  }
+  PT_FN void commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  // Wait until at most Pending of the committed groups are in flight.
+  template <int Pending>
+  PT_FN void wait() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+  }
+};
+#else
+// The host's cp.async: a copy is deferred until a wait releases its group,
+// so a slot read before its wait sees stale words there too.
+struct RingCopy {
+  struct Copy {
+    uint32_t* dst;
+    const uint32_t* src;
+  };
+  std::vector<Copy> open;
+  std::deque<std::vector<Copy>> groups;
+  void copy16(uint32_t* dst, const uint32_t* src) {
+    open.push_back({dst, src});
+  }
+  void commit() {
+    groups.push_back(open);
+    open.clear();
+  }
+  template <int Pending>
+  void wait() {
+    while ((int)groups.size() > Pending) {
+      for (const Copy& c : groups.front())
+        for (int i = 0; i < 4; ++i) c.dst[i] = c.src[i];
+      groups.pop_front();
+    }
+  }
+};
+#endif
 
 }  // namespace ptt
 

@@ -61,11 +61,6 @@
 
 #include "field.cuh"
 
-#if !defined(__CUDACC__)
-#include <deque>
-#include <vector>
-#endif
-
 namespace ptt {
 
 constexpr uint32_t kInitKey = 0xFFFFFFFFu;
@@ -93,50 +88,6 @@ PT_HD constexpr int64_t phase_a_ring_words(int ring, int T, int n_words) {
   return (int64_t)ring * T * (2 * n_words + 2);
 }
 
-#if defined(__CUDACC__)
-// cp.async: 16-byte copies from global to shared memory, in commit groups.
-struct RingCopy {
-  PT_FN void copy16(uint32_t* dst, const uint32_t* src) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-                 "l"(src)
-                 : "memory");
-  }
-  PT_FN void commit() {
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-  }
-  // Wait until at most Pending of the committed groups are in flight.
-  template <int Pending>
-  PT_FN void wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
-  }
-};
-#else
-// The host's cp.async: a copy is deferred until a wait releases its group.
-struct RingCopy {
-  struct Copy {
-    uint32_t* dst;
-    const uint32_t* src;
-  };
-  std::vector<Copy> open;
-  std::deque<std::vector<Copy>> groups;
-  void copy16(uint32_t* dst, const uint32_t* src) {
-    open.push_back({dst, src});
-  }
-  void commit() {
-    groups.push_back(open);
-    open.clear();
-  }
-  template <int Pending>
-  void wait() {
-    while ((int)groups.size() > Pending) {
-      for (const Copy& c : groups.front())
-        for (int i = 0; i < 4; ++i) c.dst[i] = c.src[i];
-      groups.pop_front();
-    }
-  }
-};
-#endif
 
 // Step s's copies into its slot: the point's 2L / 4 chunks, its key and raw
 // index.

@@ -15,6 +15,9 @@ as in the JAX package, with its splits (``maxk = 8``, balanced
   the device by ``ntt_mxu.t1_table``;
 * the inter-level twiddle is read from that (W, A, B) table by column
   k2 = c // batch, not from a broadcast copy the size of the data;
+* the transpose between levels is folded into the outer pass's load: it
+  reads the inner level's output as the view (W, B, A, batch) where it
+  lies, so the recursion copies nothing between passes;
 * every value stays in [0, 2p), or [0, p) for BLS12-381 Fr
   (``mont.canon``) (no lazy bounds, no closing multiply by ONE); the first
   pass (the leaf) brings any input word below 2^256 to
@@ -27,6 +30,8 @@ four-step engine's (``ops/ntt_mxu.py``).
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -36,7 +41,7 @@ from . import _ext
 from .ntt_mxu import t1_table
 from ._ext import I32, I64, P
 
-MAX_LOG_K = 8          # the kernel's largest pass: K = 256, 64 KB per block
+MAX_LOG_K = 8          # the kernel's largest pass: K = 256, 80 KB per block
 
 
 def stage_twiddle_rows(spec: FieldSpec, log_k: int, omega: int,
@@ -66,6 +71,21 @@ def _bitrev(log_k: int) -> np.ndarray:
     return rev.astype(np.int32)
 
 
+def natural_layout(x: torch.Tensor) -> torch.Tensor:
+    """A pass's input as (W, K, nb) words in natural order: ``x`` itself,
+    or for the four-step inner output view (W, nb / batch, K, batch) the
+    element (j, c) at word (c // batch) K batch + j batch + c mod batch of
+    each plane (the kernel's own indexing)."""
+    if x.dim() == 3:
+        return x
+    W, G, K, batch = x.shape
+    nb = G * batch
+    j = torch.arange(K, device=x.device).unsqueeze(1)
+    c = torch.arange(nb, device=x.device).unsqueeze(0)
+    at = c // batch * K * batch + j * batch + c % batch
+    return x.reshape(W, -1)[:, at.reshape(-1)].reshape(W, K, nb)
+
+
 def small_ntt_batch_plain(spec: FieldSpec, x: torch.Tensor, log_k: int,
                           tw_rows: torch.Tensor,
                           pre_tw: torch.Tensor | None = None,
@@ -73,6 +93,7 @@ def small_ntt_batch_plain(spec: FieldSpec, x: torch.Tensor, log_k: int,
                           reduce_in: bool = False,
                           canonical_out: bool = False) -> torch.Tensor:
     """Plain version: the kernel's steps in its order, on whole tensors."""
+    x = natural_layout(x)
     W, K, nb = x.shape
     if reduce_in:
         x = mont.reduce_wire(spec, x)
@@ -101,8 +122,10 @@ def small_ntt_batch(spec: FieldSpec, x: torch.Tensor, log_k: int,
                     scale: torch.Tensor | None = None,
                     reduce_in: bool = False,
                     canonical_out: bool = False) -> torch.Tensor:
-    """Batch of length-K NTTs along axis 1 of (W, K, nb) words, natural order
-    in and out, K = 2^log_k.
+    """Batch of length-K NTTs along the K axis of ``x``, natural order in
+    and out, K = 2^log_k: (W, K, nb) words, or the four-step inner output
+    view (W, nb / batch, K, batch), whose column c = k2 batch + b is
+    x[:, k2, :, b] (read where it lies, no transpose).  Returns (W, K, nb).
 
     ``tw_rows``: :func:`stage_twiddle_rows` (W, K) for the pass's root.
     ``pre_tw`` (optional, (W, K, B) canonical words with B | nb): element
@@ -112,7 +135,12 @@ def small_ntt_batch(spec: FieldSpec, x: torch.Tensor, log_k: int,
     below 2p, or canonical with ``canonical_out``.  BLS12-381 Fr
     (``mont.canon``): inputs below p (or any word with ``reduce_in``),
     outputs below p."""
-    W, K, nb = x.shape
+    if x.dim() == 4:
+        W, G, K, run = x.shape
+        nb = G * run
+    else:
+        W, K, nb = x.shape
+        run = nb
     if K != 1 << log_k or tw_rows.shape != (W, K):
         raise ValueError(f"small_ntt_batch: x {tuple(x.shape)} and twiddle "
                          f"rows {tuple(tw_rows.shape)} do not match "
@@ -136,14 +164,67 @@ def small_ntt_batch(spec: FieldSpec, x: torch.Tensor, log_k: int,
     sc = scale.contiguous() if scale is not None else None
     _ext.check_cuda("small_ntt_batch", x, tw_rows,
                     *(t for t in (pre, sc) if t is not None))
-    out = torch.empty_like(x)
+    out = torch.empty((W, K, nb), dtype=x.dtype, device=x.device)
     _ext.launch("small_ntt", "ptt_small_ntt",
-                [P, P, P, P, P, I64, I32, I64, I32, I32, I32],
+                [P, P, P, P, P, I64, I32, I64, I64, I32, I32, I32, I32],
                 [x.data_ptr(), tw_rows.data_ptr(),
                  pre.data_ptr() if pre is not None else None,
                  sc.data_ptr() if sc is not None else None, out.data_ptr(),
-                 nb, log_k, pre.shape[2] if pre is not None else 1,
-                 int(reduce_in), int(canonical_out), field], x.device)
+                 nb, log_k, run, pre.shape[2] if pre is not None else 1,
+                 int(reduce_in), int(canonical_out), field,
+                 small_ntt_threads(field, log_k, x.device)], x.device)
+    return out
+
+
+def small_ntt_threads(field: int, log_k: int, device: torch.device) -> int:
+    """Threads of one full wave of csrc/small_ntt.cu's pass of 2^log_k for
+    NTT field id ``field`` on the card ``device``, as the build's
+    registers and the pass's shared memory allow."""
+    return _ext.resident_threads("small_ntt", "ptt_small_ntt_threads",
+                                 16 * field + log_k, device)
+
+
+def small_ntt_geometry(spec: FieldSpec, log_k: int, nb: int,
+                       device: torch.device) -> dict:
+    """How a pass of 2^log_k over nb columns launches on ``device``:
+    elements a thread (r), rounds, columns a tile, tiles, blocks (the same
+    number of tiles a block), threads a block and the blocks of one wave."""
+    field = _ext.kernel_field("small_ntt_batch", spec, _ext.NTT_FIELDS)
+    wave = small_ntt_threads(field, log_k, device)
+    out = (ctypes.c_int64 * 6)()
+    f = _ext._fn("small_ntt", "ptt_small_ntt_geometry",
+                 [I32, I64, I32, ctypes.POINTER(ctypes.c_int64)])
+    f(log_k, nb, wave, out)
+    r, rounds, cols, tiles, blocks, threads = out
+    return {"r": r, "rounds": rounds, "cols": cols, "tiles": tiles,
+            "blocks": blocks, "threads": threads,
+            "wave_blocks": wave // threads}
+
+
+def splits(log_n: int, maxk: int = 8) -> tuple:
+    """The four-step recursion of a 2^log_n transform: its levels' (log_a,
+    log_b), top-down, and its leaf's log_k.  The JAX package's balanced
+    splits: every factor >= 8 rows; a 4-5 bit residue becomes a slightly
+    oversized leaf."""
+    levels, log = [], log_n
+    while log > maxk and log >= 6:
+        la = min(maxk, (log + 1) // 2)
+        levels.append((la, log - la))
+        log -= la
+    return levels, log
+
+
+def pass_shapes(log_n: int, maxk: int = 8) -> list:
+    """The passes a radix-2 transform of 2^log_n launches, in launch order
+    (the leaf first, the top pass last): (log_k, nb, batch, T1 table), where
+    batch is that of the inner output view (W, nb / batch, K, batch) the
+    pass reads, 0 for the leaf's natural (W, K, nb) layout."""
+    levels, leaf = splits(log_n, maxk)
+    out = [(leaf, 1 << (log_n - leaf), 0, False)]
+    for i in reversed(range(len(levels))):
+        la = levels[i][0]
+        batch = 1 << sum(lv[0] for lv in levels[:i])
+        out.append((la, 1 << (log_n - la), batch, True))
     return out
 
 
@@ -163,17 +244,14 @@ class FusedNttPlan:
         self.levels = []
         assert log_n >= 3, "fused NTT needs n >= 8"
         p = spec.modulus
-        log, w = log_n, omega
-        # The JAX package's balanced splits: every factor >= 8 rows; a 4-5
-        # bit residue becomes a slightly oversized leaf.
-        while log > maxk and log >= 6:
-            la = min(maxk, (log + 1) // 2)
-            lb = log - la
+        w = omega
+        levels, log = splits(log_n, maxk)
+        for la, lb in levels:
             A, B = 1 << la, 1 << lb
             self.levels.append((la, lb, t1_table(spec, w, la, lb, device),
                                 stage_twiddle_rows(spec, la, pow(w, B, p),
                                                    device)))
-            log, w = lb, pow(w, A, p)
+            w = pow(w, A, p)
         self.leaf = (log, stage_twiddle_rows(spec, log, w, device))
         self.scale = None if scale % p == 1 else mont.words_tensor(
             mont.ints_to_words(spec, [spec.to_wire_int(scale)]),
@@ -210,11 +288,11 @@ def _transform(plan: FusedNttPlan, level: int, x: torch.Tensor) -> torch.Tensor:
     A, B = 1 << la, 1 << lb
     W, M, batch = x.shape
     assert M == A * B
-    # inner: length-B over j2, then the transpose to rows j1, columns
-    # (k2, batch); the twiddle w^(j1 k2) rides the outer pass's load
+    # inner: length-B over j2; the outer pass reads its output (W, B, A,
+    # batch) as rows j1, columns (k2, batch) where it lies, and the twiddle
+    # w^(j1 k2) rides its load
     y = _transform(plan, level + 1, x.reshape(W, B, A * batch))
-    z = y.reshape(W, B, A, batch).permute(0, 2, 1, 3).contiguous()
-    out = small_ntt_batch(spec, z.reshape(W, A, B * batch), la, tw,
+    out = small_ntt_batch(spec, y.reshape(W, B, A, batch), la, tw,
                           pre_tw=t1t, scale=scale, canonical_out=top)
     return out.reshape(W, A * B, batch)
 

@@ -1,23 +1,32 @@
-"""Builds of MSM phase A, of the weighted reduction and of the bucket
-assembly, built and timed on the card.
+"""Builds of MSM phase A, of the weighted reduction, of the bucket
+assembly, of the radix-2 NTT pass and of dg3, built and timed on the card.
 
-    python -m panda_tpu_torch.tools.occupancy_sweep [phase_a|wscan|buckets ...]
+    python -m panda_tpu_torch.tools.occupancy_sweep \
+        [phase_a|wscan|buckets|small_ntt|dg3 ...]
 
-Builds ``csrc/phase_a.cu``, ``csrc/wscan.cu`` and ``csrc/buckets.cu`` (or
-those named) with other ``-D`` flags (:data:`BUILDS`: the blocks of 128
-threads an SM that the launch bounds ask for, phase A's ring depth, the
-word counts for which the weighted reduction overlaps its scaling with its
-tree), prints each build's registers, stack and spills from its ``ptxas
--v`` report, and times each build at the MSM's 2^16 and 2^20 shapes for
-each curve: device ms a call from CUDA events over a few calls, with the
+Builds ``csrc/phase_a.cu``, ``csrc/wscan.cu``, ``csrc/buckets.cu``,
+``csrc/small_ntt.cu`` and ``csrc/dg3.cu`` (or those named) with other
+``-D`` flags (:data:`BUILDS`: the blocks an SM that the launch bounds ask
+for, phase A's ring depth, the word counts for which the weighted reduction
+overlaps its scaling with its tree; small_ntt's elements a thread r, its
+threads a block (the columns a tile, T r / K) and blocks an SM; dg3's
+words a slice (the columns or g a slice), narrowest column tile and ring
+depth),
+prints each build's registers, stack and spills from its ``ptxas -v``
+report, and times each build with CUDA events over a few calls, with the
 geometry each build's own occupancy gives (``phase_a.resident_threads``,
-``reduce.wscan_threads``, ``msm.buckets_threads``).  Inputs: 256 pool
+``reduce.wscan_threads``, ``msm.buckets_threads``,
+``ntt_pallas.small_ntt_threads``, ``profile_gather4.dg3_threads``).  The
+MSM kernels at the MSM's 2^16 and 2^20 shapes for each curve, on 256 pool
 scalars (a few hundred distinct digits a window); the bucket assembly
 also on a uniform draw of scalars below r (near-uniform digits, as a
-prover's scalars give), both on the default phase A's output.  Every
-build's bucket tables and window sums must equal the default build's after
-affine normalisation.  The first build of each kernel is the default.
-Raises without a GPU.
+prover's scalars give), both on the default phase A's output.  small_ntt
+at the radix-2 2^20 and 2^22 NTTs' passes, each in the layout the
+recursion hands it, for each scalar field, dg3 at the gather probe's four
+depths.  Every build's bucket
+tables and window sums must equal the default build's after affine
+normalisation, every small_ntt and dg3 build's words the plain version's.
+The first build of each kernel is the default.  Raises without a GPU.
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import torch
 from ..curves import point as cp
 from ..curves.config import BLS12_377, BLS12_381, BN254
 from ..fields import mont
-from ..ops import _ext, msm, phase_a, reduce
+from ..ops import _ext, msm, ntt_pallas, phase_a, reduce
 from ..reference import curve_ref
 
 BLOCK = 128
@@ -50,7 +59,19 @@ BUILDS = (
     ("wscan", ("-DPTT_WSCAN_OVERLAP_WORDS=13",)),    # overlap for none
     ("buckets", ()),
     ("buckets", ("-DPTT_BUCKETS_BLOCKS_8=4", "-DPTT_BUCKETS_BLOCKS_12=3")),
+    ("small_ntt", ()),
+    ("small_ntt", ("-DPTT_SMALL_NTT_R=4", "-DPTT_SMALL_NTT_BLOCKS=4")),
+    ("small_ntt", ("-DPTT_SMALL_NTT_R=4", "-DPTT_SMALL_NTT_BLOCKS=3")),
+    ("small_ntt", ("-DPTT_SMALL_NTT_BLOCKS=1",)),
+    ("small_ntt", ("-DPTT_SMALL_NTT_THREADS=128", "-DPTT_SMALL_NTT_BLOCKS=4")),
+    ("dg3", ()),
+    ("dg3", ("-DPTT_DG3_MIN_COLS=8",)),
+    ("dg3", ("-DPTT_DG3_SLICE_WORDS=4096",)),
+    ("dg3", ("-DPTT_DG3_RING=3",)),
 )
+MSM_KERNELS = ("phase_a", "wscan", "buckets")
+FIELD_STRUCT = {"bn254_fr": "Fr254", "bls12_377_fr": "Fr377",
+                "bls12_381_fr": "Fr381"}
 
 
 def _ms(fn, reps: int) -> float:
@@ -64,6 +85,26 @@ def _ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def _device_ms(fn, reps: int, kernel: str) -> float:
+    """Median device ms of the launches of ``kernel`` over ``reps`` calls
+    of ``fn`` after one warm-up, from torch.profiler's kernel records (a
+    call shorter than its wrapper's host work is paced by the host under
+    CUDA events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    if not us:
+        raise AssertionError(f"the profiler recorded no {kernel} launch")
+    return float(np.median(us)) / 1e3
 
 
 def _inputs(curve, n: int, device, seed: int = 8):
@@ -108,8 +149,10 @@ def main(device=None, sizes=(16, 20), kernels=None) -> list:
     builds = [b for b in BUILDS if not kernels or b[0] in kernels]
     with ThreadPoolExecutor(len(builds)) as ex:
         list(ex.map(lambda b: _ext._build(*b), builds))
-    rows = []
-    for curve in (BN254, BLS12_377, BLS12_381):
+    rows = _ntt_rows(device, [b for b in builds if b[0] == "small_ntt"]) + \
+        _dg3_rows(device, [b for b in builds if b[0] == "dg3"])
+    builds = [b for b in builds if b[0] in MSM_KERNELS]
+    for curve in (BN254, BLS12_377, BLS12_381) if builds else ():
         tag = {"bn254": "Bn254", "bls12_377": "Bls12_377",
                "bls12_381": "Bls12_381"}[curve.name]
         for log_n in sizes:
@@ -167,6 +210,99 @@ def main(device=None, sizes=(16, 20), kernels=None) -> list:
                        "registers_stack_spills": regs, "ms": ms, **extra}
                 print(json.dumps(row), flush=True)
                 rows.append(row)
+    return rows
+
+
+def _words(n: int, seed: int, top: int, device):
+    """(8, n) int32 words of random values whose top word is below
+    ``top``."""
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=(8, n),
+                                             dtype=np.uint64)
+    w[7] %= top
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
+
+
+def _ntt_rows(device, builds) -> list:
+    """Each small_ntt build at each pass of the radix-2 2^20 and 2^22 NTTs
+    (ntt_pallas.pass_shapes) for each scalar field: its words equal to the
+    plain version's, device ms a launch (torch.profiler, 20 calls), ms a
+    call (CUDA events) and its geometry."""
+    rows = []
+    for fr in (BN254.fr, BLS12_377.fr, BLS12_381.fr):
+        below = (fr.modulus if mont.canon(fr) else 2 * fr.modulus) >> 224
+        for log_n, (log_k, nb, batch, with_pre) in (
+                (n, shape) for n in (20, 22)
+                for shape in ntt_pallas.pass_shapes(n)):
+            K = 1 << log_k
+            B = nb // (batch or nb)
+            x = _words(K * nb, log_k, 1 << 32 if not batch else below,
+                       device)
+            x = x.reshape(8, B, K, batch) if batch else x.reshape(8, K, nb)
+            tw = ntt_pallas.stage_twiddle_rows(fr, log_k,
+                                               fr.root_of_unity(log_k),
+                                               device)
+            pre = _words(K * B, 1, fr.modulus >> 224, device).reshape(
+                8, K, B) if with_pre else None
+            opts = (pre, None, not batch, log_k == 8)
+            want = ntt_pallas.small_ntt_batch_plain(fr, x, log_k, tw, *opts)
+            for name, defines in builds:
+                with _ext.variant(name, defines):
+                    call = lambda: ntt_pallas.small_ntt_batch(  # noqa: E731
+                        fr, x, log_k, tw, *opts)
+                    if not torch.equal(call(), want):
+                        raise AssertionError(f"small_ntt {defines} "
+                                             f"({fr.name}, K = {K}): differs "
+                                             "from the plain version")
+                    ms = _ms(call, 20)
+                    dev_ms = _device_ms(call, 20, "small_ntt_kernel")
+                    geo = ntt_pallas.small_ntt_geometry(fr, log_k, nb,
+                                                        device)
+                regs = [r[1:] for r in _ext.ptxas_rows(name, defines)
+                        if FIELD_STRUCT[fr.name] in r[0]]
+                row = {"kernel": name, "defines": list(defines),
+                       "field": fr.name, "log_n": log_n, "log_k": log_k,
+                       "batch": batch, "t1": with_pre,
+                       "default": not defines, "geometry": geo,
+                       "registers_stack_spills": regs, "device_ms": dev_ms,
+                       "ms": ms}
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+    return rows
+
+
+def _dg3_rows(device, builds) -> list:
+    """Each dg3 build at the gather probe's depths (2^22 lookups): its
+    words equal to the plain version's, device ms a call (CUDA events, 20
+    calls) beside torch.gather's, and its geometry."""
+    from . import profile_gather4 as pg
+    rows = []
+    g = torch.Generator(device=device).manual_seed(4)
+    for R in pg.DEPTHS:
+        G = (1 << 22) // (R * pg.COLS)
+        tab, idx = (torch.randint(0, hi, (G, R, pg.COLS), dtype=torch.int32,
+                                  generator=g, device=device)
+                    for hi in (1 << 31, R))
+        want = pg.dg3_plain(tab, idx)
+        idx64 = idx.long()
+        gather = lambda: torch.gather(tab, 1, idx64)  # noqa: E731
+        gather_ms = _device_ms(gather, 20, "")
+        for name, defines in builds:
+            with _ext.variant(name, defines):
+                if not torch.equal(pg.dg3(tab, idx), want):
+                    raise AssertionError(f"dg3 {defines} (R = {R}): differs "
+                                         "from the plain version")
+                ms = _ms(lambda: pg.dg3(tab, idx), 20)
+                dev_ms = _device_ms(lambda: pg.dg3(tab, idx), 20,
+                                    "dg3_kernel")
+                geo = pg.dg3_geometry(G, R, device)
+            row = {"kernel": name, "defines": list(defines), "R": R,
+                   "default": not defines, "geometry": geo,
+                   "registers_stack_spills": [
+                       r[1:] for r in _ext.ptxas_rows(name, defines)],
+                   "device_ms": dev_ms, "ms": ms,
+                   "gather_device_ms": gather_ms}
+            print(json.dumps(row), flush=True)
+            rows.append(row)
     return rows
 
 

@@ -27,6 +27,7 @@ ones); with no GPU and no ``--device cpu`` it raises.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import time
 
 import torch
@@ -55,10 +56,33 @@ def dg3(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return dg3_plain(tab, idx)
     G, R, _ = tab.shape
     out = torch.empty_like(tab)
-    _ext.launch("dg3", "ptt_dg3", [P, P, P, I64, I32],
-                [tab.data_ptr(), idx.data_ptr(), out.data_ptr(), G, R],
-                tab.device)
+    _ext.launch("dg3", "ptt_dg3", [P, P, P, I64, I32, I32],
+                [tab.data_ptr(), idx.data_ptr(), out.data_ptr(), G, R,
+                 dg3_threads(R, tab.device)], tab.device)
     return out
+
+
+def dg3_threads(R: int, device: torch.device) -> int:
+    """Threads of one full wave of csrc/dg3.cu's kernel at depth R on the
+    card ``device``, as the build's shared memory and registers allow."""
+    return _ext.resident_threads("dg3", "ptt_dg3_threads", R, device)
+
+
+def dg3_geometry(G: int, R: int, device: torch.device) -> dict:
+    """How a dg3 launch on ``device`` cuts its (G, R, 128) lookups: columns
+    and g a slice, slices, blocks (a persistent grid, the same number of
+    slices a block), threads a block, the blocks of one wave and the
+    stages of its ring."""
+    out = (ctypes.c_int64 * 6)()
+    wave = dg3_threads(R, device)
+    f = _ext._fn("dg3", "ptt_dg3_geometry",
+                 [I64, I32, I32, ctypes.POINTER(ctypes.c_int64)])
+    with torch.cuda.device(device):
+        _ext._check("dg3", "ptt_dg3_geometry", f(G, R, wave, out))
+    cols, gs, slices, blocks, threads, ring = out
+    return {"cols": cols, "g_a_slice": gs, "slices": slices,
+            "blocks": blocks, "threads": threads,
+            "wave_blocks": wave // threads, "ring": ring}
 
 
 def row_gather(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

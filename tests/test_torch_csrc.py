@@ -58,40 +58,40 @@ template <class F>
 void fmul_all(In a, In b, Out r, int64_t n, int canonical_out) {
   for (int64_t i = 0; i < n; ++i) fmul_elem<F>(a, b, r, i, n, canonical_out);
 }
-// The kernel's steps for one column at a time (a tile of one column).
+// small_ntt.cu's launch on the host: every block's tiles, each phase
+// thread by thread (the build's r and threads; `resident` threads a wave).
 template <class F>
 void small_ntt_all(In x, In tw, In pre, In scale, Out out, int64_t nb,
-                   int log_k, int64_t pre_cols, int reduce_in,
-                   int canonical_out) {
-  const int K = 1 << log_k;
-  const int64_t batch = pre ? nb / pre_cols : 1;
-  std::vector<uint32_t> col(8 * K);
-  for (int64_t c = 0; c < nb; ++c) {
-    for (int j = 0; j < K; ++j)
-      store_fe(col.data() + bitrev(j, log_k), 0, K,
-               small_ntt_load<F>(x, pre, nb, K, j, c, pre_cols, batch,
-                                 reduce_in));
-    for (int s = 0; s < log_k; ++s)
-      for (int q = 0; q < K / 2; ++q)
-        small_ntt_butterfly<F>(col.data(), K, 1, tw, K, s, q);
-    for (int k = 0; k < K; ++k)
-      small_ntt_store<F>(out, nb, K, k, c, load_fe(col.data() + k, 0, K),
-                         scale, canonical_out);
+                   int log_k, int64_t run, int64_t pre_cols, int reduce_in,
+                   int canonical_out, int resident) {
+  const small_ntt_args a{x, tw, pre, scale, out, nb, run, pre_cols,
+                         pre ? nb / pre_cols : 1, log_k, reduce_in,
+                         canonical_out};
+  const int r = small_ntt_r(log_k), T = kNttThreads;
+  const int64_t blocks =
+      even_blocks(small_ntt_geometry(log_k, nb, r, T).tiles, resident, T);
+  for (int64_t b = 0; b < blocks; ++b) {
+    if (r == kNttR)
+      small_ntt_block_host<F, kNttR>(a, b, blocks, T);
+    else
+      small_ntt_block_host<F, 2>(a, b, blocks, T);
   }
 }
 
-// The kernel's blocks one after another: stage the (g, c0) tile, then look
-// up every element of it.
+// dg3.cu's launch on the host: every block's slices, each phase thread by
+// thread, with an H100's 232448 bytes of shared memory a block.
+constexpr int64_t kHostSmemMax = 232448;
 void dg3_all(const int32_t* tab, const int32_t* idx, int32_t* out, int64_t G,
-             int R) {
-  std::vector<int32_t> tile((size_t)R * kDg3Tile);
-  for (int64_t g = 0; g < G; ++g)
-    for (int c0 = 0; c0 < kDg3Cols; c0 += kDg3Tile) {
-      for (int e = 0; e < R * kDg3Tile; ++e)
-        dg3_stage(tab, tile.data(), g, R, c0, e);
-      for (int e = 0; e < R * kDg3Tile; ++e)
-        dg3_lookup(tile.data(), idx, out, g, R, c0, e);
-    }
+             int R, int resident) {
+  const dg3_geom geo = dg3_geometry(G, R, kDg3SliceWords, kHostSmemMax);
+  const int64_t blocks = even_blocks(geo.slices, resident, kDg3Threads);
+  for (int64_t b = 0; b < blocks; ++b) {
+    if (geo.ring == 1)
+      dg3_block_host<1>(tab, idx, out, G, R, geo, b, blocks, kDg3Threads);
+    else
+      dg3_block_host<kDg3Ring>(tab, idx, out, G, R, geo, b, blocks,
+                               kDg3Threads);
+  }
 }
 
 template <class F>
@@ -124,10 +124,10 @@ template <class F> struct Dft {
 };
 template <class F> struct SmallNtt {
   static void run(In x, In tw, In pre, In scale, Out out, int64_t nb,
-                  int log_k, int64_t pre_cols, int reduce_in,
-                  int canonical_out) {
-    small_ntt_all<F>(x, tw, pre, scale, out, nb, log_k, pre_cols, reduce_in,
-                     canonical_out);
+                  int log_k, int64_t run, int64_t pre_cols, int reduce_in,
+                  int canonical_out, int resident) {
+    small_ntt_all<F>(x, tw, pre, scale, out, nb, log_k, run, pre_cols,
+                     reduce_in, canonical_out, resident);
   }
 };
 // Each MSM body over every element, for curve (or scalar-field) id `id` in
@@ -217,6 +217,16 @@ template <class C> struct Wscan {
   }
 };
 
+template <class F> struct MulWide {
+  static void run(In a, In b, Out r, int64_t n) {
+    for (int64_t i = 0; i < n; ++i) {
+      const fe x = load_fe(a, i, n), y = load_fe(b, i, n);
+      store_fe(r, i, n, mont_mul_wide<F>(x, y));
+      store_fe(r + 8 * n, i, n, mont_mul<F>(x, y));
+    }
+  }
+};
+
 extern "C" {
 // field: 0 Fp254, 1 Fp377, 2 Fp381, 3 Fr381; op: 0 mont_mul, 1 add_mod,
 // 2 sub_mod
@@ -225,6 +235,10 @@ void h_fp(int op, int field, In a, In b, Out r, int64_t n) {
   else if (field == 1) fp_all<Fp377>(op, a, b, r, n);
   else if (field == 2) fp_all<Fp381>(op, a, b, r, n);
   else fp_all<Fr381>(op, a, b, r, n);
+}
+// mont_mul_wide's and mont_mul's products of NTT field `field`: (16, n).
+void h_mul_wide(In a, In b, Out r, int64_t n, int field) {
+  by_field<MulWide>(field, a, b, r, n);
 }
 void h_reduce_wide_fr381(In a, Out r, int64_t n) {
   for (int64_t i = 0; i < n; ++i)
@@ -279,14 +293,30 @@ void h_dft(In x, In mat, Out out, int64_t nb, int K, int canonical_out,
   by_field<Dft>(field, x, mat, out, nb, K, canonical_out);
 }
 void h_small_ntt(In x, In tw, In pre, In scale, Out out, int64_t nb,
-                 int log_k, int64_t pre_cols, int reduce_in,
-                 int canonical_out, int field) {
-  by_field<SmallNtt>(field, x, tw, pre, scale, out, nb, log_k, pre_cols,
-                     reduce_in, canonical_out);
+                 int log_k, int64_t run, int64_t pre_cols, int reduce_in,
+                 int canonical_out, int resident, int field) {
+  by_field<SmallNtt>(field, x, tw, pre, scale, out, nb, log_k, run,
+                     pre_cols, reduce_in, canonical_out, resident);
+}
+// {r, rounds, columns a tile, tiles, blocks} of a small_ntt launch.
+void h_small_ntt_geometry(int log_k, int64_t nb, int resident,
+                          int64_t* out) {
+  const int r = small_ntt_r(log_k);
+  const small_ntt_geom g = small_ntt_geometry(log_k, nb, r, kNttThreads);
+  out[0] = r, out[1] = g.rounds, out[2] = g.tc, out[3] = g.tiles;
+  out[4] = even_blocks(g.tiles, resident, kNttThreads);
 }
 void h_dg3(const int32_t* tab, const int32_t* idx, int32_t* out, int64_t G,
-           int R) {
-  dg3_all(tab, idx, out, G, R);
+           int R, int resident) {
+  dg3_all(tab, idx, out, G, R, resident);
+}
+// {columns a slice, g a slice, slices, blocks, ring stages} of a dg3
+// launch.
+void h_dg3_geometry(int64_t G, int R, int resident, int64_t* out) {
+  const dg3_geom geo = dg3_geometry(G, R, kDg3SliceWords, kHostSmemMax);
+  out[0] = geo.tc, out[1] = geo.gs, out[2] = geo.slices;
+  out[3] = even_blocks(geo.slices, resident, kDg3Threads);
+  out[4] = geo.ring;
 }
 }
 """
@@ -825,6 +855,37 @@ def test_weighted_scan_bit_identical_bls(host, curve):
 
 
 @NTT_FIELDS
+def test_mont_mul_wide_bit_identical(host, fr):
+    """field.cuh's mont_mul_wide (the even/odd accumulation that small_ntt
+    multiplies with) gives mont_mul's product word for word on its whole
+    domain's edges and on random values: a and b below 2r (a below r and b
+    any word below 2^256 for BLS12-381 Fr, whose values stay below r)."""
+    r = fr.modulus
+    canon = mont.canon(fr)
+    rng = random.Random(7)
+    a_top = r if canon else 2 * r
+    b_top = 1 << 256 if canon else 2 * r
+    edge_a = [0, 1, 2, r - 1, a_top - 1, a_top - 2, a_top // 2]
+    edge_b = [0, 1, r - 1, r, b_top - 1, b_top - 2, (1 << 224) - 1,
+              b_top // 3]
+    if not canon:
+        edge_a += [r, r + 1]
+    a = [x for x in edge_a for _ in edge_b] + \
+        [rng.randrange(a_top) for _ in range(3000)] + \
+        [a_top - 1 - rng.randrange(1 << 64) for _ in range(500)]
+    b = [y for _ in edge_a for y in edge_b] + \
+        [rng.randrange(b_top) for _ in range(3000)] + \
+        [b_top - 1 - rng.randrange(1 << 64) for _ in range(500)]
+    A, B = _words(fr, a), _words(fr, b)
+    out = np.empty((16, len(a)), np.uint32)
+    _call(host.h_mul_wide, _np(A), _np(B), out, len(a),
+          ("i32", _ext.NTT_FIELDS.index(fr.name)))
+    np.testing.assert_array_equal(out[:8], out[8:])
+    np.testing.assert_array_equal(
+        out[8:].view(np.int32), _np(fmul.fmul_plain(fr, A, B)))
+
+
+@NTT_FIELDS
 def test_fmul_bit_identical(host, fr):
     """fmul.cu's body against the plain version: a, b < 2r give < 2r (and
     canonical with canonical_out); a < R times the plain 1 gives <= r.  For
@@ -881,36 +942,60 @@ def test_dft_bit_identical(host, log_k, nb, fr):
                    for v in mont.words_to_ints(out.reshape(8, -1)))
 
 
+def _small_ntt_geometry(host, log_k, nb, resident):
+    out = np.zeros(5, np.int64)
+    _call(host.h_small_ntt_geometry, ("i32", log_k), nb, ("i32", resident),
+          out)
+    return out.tolist()
+
+
 @NTT_FIELDS
-@pytest.mark.parametrize("log_k,pre", [(3, False), (3, True), (6, False),
-                                       (6, True)])
-def test_small_ntt_bit_identical(host, log_k, pre, fr):
-    """small_ntt.cu's body (load with the bit reversal, butterflies, store)
-    against the plain version: any words below 2^256 with reduce_in, and
-    words below 2r (r for BLS12-381 Fr) with the pre-twiddle table (B = 3
-    of 6 columns, so batch 2), the inverse's scale and the canonical
-    store."""
+@pytest.mark.parametrize("pre", [False, True], ids=["no-T1", "T1"])
+@pytest.mark.parametrize("layout", ["natural", "runs"])
+@pytest.mark.parametrize("log_k", range(1, 9))
+def test_small_ntt_bit_identical(host, log_k, layout, pre, fr):
+    """small_ntt.cu's launch on the host (every block's tiles; the strided
+    load, the in-register radix-r rounds with their shared-memory
+    exchanges, the store), word for word against the plain version, for
+    every K, in the natural layout and as the four-step inner output view
+    (W, nb / batch, K, batch), with and without a pre-twiddle table.  Two
+    configurations a case: any words below 2^256 with reduce_in over 1.5
+    tiles, which one block loops over (a partial last tile; with the table
+    the first tile spans two of its columns, read from global memory; the
+    runs layout at batch 1, the top level's column-major runs); and words
+    below 2r (r for BLS12-381 Fr) with the inverse's scale and the
+    canonical store over one tile of one table column (read from shared
+    memory)."""
     r = fr.modulus
     stored = r if mont.canon(fr) else 2 * r       # the stored values' bound
-    K, nb, B = 1 << log_k, 6, 3
+    K = 1 << log_k
     rng = random.Random(log_k)
-    wide = [rng.randrange(1 << 256) for _ in range(K * nb)]
-    wide[:4] = [(1 << 256) - 1, r, 2 * r - 1, 2 * r + 7]
-    lazy = [rng.randrange(stored) for _ in range(K * nb)]
-    lazy[:2] = [stored - 1, r - 1]
+    T = 256                                         # the build's threads
+    tc = _small_ntt_geometry(host, log_k, 1, T)[2]
     tw = ntt_pallas.stage_twiddle_rows(fr, log_k, fr.root_of_unity(log_k))
-    table = _words(fr, [rng.randrange(r) for _ in range(K * B)])
-    table = table.reshape(8, K, B).contiguous() if pre else None
     scale = _words(fr, [fr.to_wire_int(pow(K, -1, r))]).reshape(8)
-    for vals, sc, reduce_in, canon in ((wide, None, True, False),
-                                       (lazy, scale, False, True)):
-        x = _words(fr, vals).reshape(8, K, nb).contiguous()
+    # (nb, batch of the runs layout, pre-table columns, values, scale,
+    # reduce_in, canonical_out, resident threads)
+    configs = (
+        (tc + tc // 2, 1, 3 if layout == "natural" else tc + tc // 2, 1 << 256,
+         None, True, False, T),
+        (tc, tc, 1, stored, scale, False, True, 2 * T))
+    for nb, batch, B, top, sc, reduce_in, canon, resident in configs:
+        vals = [rng.randrange(top) for _ in range(K * nb)]
+        vals[:2] = [top - 1, r - 1]
+        x = _words(fr, vals).reshape(8, K, nb)
+        if layout == "runs":          # x[:, c // batch, j, c % batch]
+            x = x.reshape(8, K, nb // batch, batch).permute(0, 2, 1, 3)
+        x = x.contiguous()
+        run = batch if layout == "runs" else nb
+        table = _words(fr, [rng.randrange(r) for _ in range(K * B)]
+                       ).reshape(8, K, B).contiguous() if pre else None
         out = np.empty((8, K, nb), np.uint32)
         _call(host.h_small_ntt, _np(x), _np(tw),
               None if table is None else _np(table),
-              None if sc is None else _np(sc), out, nb, ("i32", log_k),
+              None if sc is None else _np(sc), out, nb, ("i32", log_k), run,
               B if pre else 1, ("i32", int(reduce_in)), ("i32", int(canon)),
-              ("i32", _ext.NTT_FIELDS.index(fr.name)))
+              ("i32", resident), ("i32", _ext.NTT_FIELDS.index(fr.name)))
         want = ntt_pallas.small_ntt_batch_plain(fr, x, log_k, tw, table, sc,
                                                 reduce_in, canon)
         np.testing.assert_array_equal(out.view(np.int32), _np(want))
@@ -918,20 +1003,42 @@ def test_small_ntt_bit_identical(host, log_k, pre, fr):
                    for v in mont.words_to_ints(out.reshape(8, -1)))
 
 
+def test_small_ntt_geometry(host):
+    """The launch geometry at the radix-2 engine's 2^20 and 2^22 passes:
+    r = 8, rounds of 3 stages and a residue, tiles of T r / K columns, and
+    every block the same number of tiles (264 threads-worth of blocks of
+    256 a wave, as two blocks an SM on 132 SMs would give)."""
+    wave = 2 * 132 * 256
+    assert _small_ntt_geometry(host, 8, 1 << 12, wave) == [8, 3, 8, 512, 256]
+    assert _small_ntt_geometry(host, 6, 1 << 14, wave) == [8, 2, 32, 512, 256]
+    assert _small_ntt_geometry(host, 7, 1 << 15, wave) == [8, 3, 16, 2048,
+                                                           256]
+    assert _small_ntt_geometry(host, 2, 5, wave) == [2, 2, 128, 1, 1]
+
+
+@pytest.mark.parametrize("partial", [False, True], ids=["whole", "partial"])
 @pytest.mark.parametrize("R", profile_gather4.DEPTHS)
-def test_dg3_bit_identical(host, R):
-    """dg3.cu's staging and lookup, block by block, against the plain
-    version on int32 words that include negative bit patterns; an index
-    outside [0, R) gives 0 and reads nothing."""
-    G = 3
-    rng = np.random.default_rng(R)
+def test_dg3_bit_identical(host, R, partial):
+    """dg3.cu's launch on the host (each block's ring of cp.async stages,
+    two, or one at R = 1024, copies landing only at their wait, and its
+    lookups, thread by thread)
+    against the plain version on int32 words that include negative bit
+    patterns; an index outside [0, R) gives 0 and reads nothing.  Two
+    blocks; with ``partial`` an odd G, whose last slice holds fewer g than
+    the others where a slice holds several (R = 8 and 32)."""
+    geo = np.zeros(5, np.int64)
+    _call(host.h_dg3_geometry, 1 << 20, ("i32", R), ("i32", 256), geo)
+    gs = int(geo[1])
+    G = 2 * gs + (gs // 2 if gs > 1 else 1) if partial else 2 * gs
+    rng = np.random.default_rng(R + partial)
     tab = rng.integers(-(1 << 31), 1 << 31, size=(G, R, 128)).astype(np.int32)
     idx = rng.integers(R, size=(G, R, 128)).astype(np.int32)
-    out = np.empty_like(tab)
-    _call(host.h_dg3, tab, idx, out, G, ("i32", R))
-    want = profile_gather4.dg3_plain(torch.from_numpy(tab),
-                                     torch.from_numpy(idx))
-    np.testing.assert_array_equal(out, _np(want))
     idx[0, 0, :3] = [-1, R, 1 << 30]
-    _call(host.h_dg3, tab, idx, out, G, ("i32", R))
-    assert (out[0, 0, :3] == 0).all()
+    out = np.empty_like(tab)
+    _call(host.h_dg3, tab, idx, out, G, ("i32", R), ("i32", 2 * 256))
+    want = profile_gather4.dg3_plain(torch.from_numpy(tab),
+                                     torch.from_numpy(idx.clip(0, R - 1)))
+    want[0, 0, :3] = 0
+    np.testing.assert_array_equal(out, _np(want))
+    _call(host.h_dg3_geometry, G, ("i32", R), ("i32", 2 * 256), geo)
+    assert geo[3] == 2 and geo[4] == (1 if R == 1024 else 2)

@@ -207,7 +207,8 @@ def test_occupancy_sweep_builds_change_the_source():
         for d in defines:
             macro = re.fullmatch(r"-D(\w+)=\d+", d).group(1)
             assert f"#ifndef {macro}" in text, d
-    assert firsts == {"phase_a": (), "wscan": (), "buckets": ()}
+    assert firsts == {"phase_a": (), "wscan": (), "buckets": (),
+                      "small_ntt": (), "dg3": ()}
     with pytest.raises(RuntimeError):
         occupancy_sweep.main()
 

@@ -112,6 +112,32 @@ def test_small_ntt_batch_matches_pallas_interpret():
             assert port[k * nb + c] == y % R
 
 
+@pytest.mark.parametrize("log_a,log_b,batch", [(3, 3, 1), (3, 2, 4),
+                                               (2, 3, 2)])
+def test_runs_layout_is_the_folded_transpose(log_a, log_b, batch):
+    """The pass read as the four-step inner output view (W, B, A, batch)
+    where it lies equals the old composition: the permute(...).contiguous()
+    copy to rows j1 and columns (k2, batch), then the pass on that natural
+    (W, A, B batch) tensor; with a T1 table and reduce_in on words >= r,
+    and with the scale and the canonical store."""
+    A, B = 1 << log_a, 1 << log_b
+    rng = random.Random(A * B * batch)
+    y = _port_words([rng.randrange(R) for _ in range(B * A * batch)],
+                    lift=set(range(0, B * A * batch, 3))
+                    ).reshape(8, B, A, batch)
+    tw = ntt_pallas.stage_twiddle_rows(FR, log_a, FR.root_of_unity(log_a))
+    t1t = _port_words([rng.randrange(R) for _ in range(A * B)]
+                      ).reshape(8, A, B)
+    scale = _port_words([pow(A, -1, R)]).reshape(8)
+    z = y.permute(0, 2, 1, 3).contiguous().reshape(8, A, B * batch)
+    for opts in ((t1t, None, True, False), (t1t, scale, False, True),
+                 (None, None, False, False)):
+        got = ntt_pallas.small_ntt_batch(FR, y, log_a, tw, *opts)
+        assert got.shape == (8, A, B * batch)
+        assert torch.equal(got, ntt_pallas.small_ntt_batch_plain(
+            FR, z, log_a, tw, *opts))
+
+
 def test_fused_ntt_matches_pallas_interpret(monkeypatch):
     """log_n 6, maxk 3 (one level of 8 x 8): the port's transform against
     JAX ``fused_ntt`` in interpret mode; and each of the JAX transform's
@@ -168,6 +194,20 @@ def test_fused_ntt_matches_oracle(curve, log_n, maxk):
     inv = ntt_pallas.fused_ntt(fr, x, log_n, inverse=True, maxk=maxk)
     assert mont.tensor_to_bytes(inv) == _wire(fr, ntt_ref.intt_oracle(fr, vals,
                                                                       w))
+
+
+def test_pass_shapes():
+    """The passes the radix-2 engine launches at 2^20 and 2^22: the leaf
+    (natural layout), then each level from the inside out, each reading the
+    inner output view with its batch, the top one at batch 1."""
+    assert ntt_pallas.pass_shapes(20) == [(6, 1 << 14, 0, False),
+                                          (6, 1 << 14, 256, True),
+                                          (8, 1 << 12, 1, True)]
+    assert ntt_pallas.pass_shapes(22) == [(7, 1 << 15, 0, False),
+                                          (7, 1 << 15, 256, True),
+                                          (8, 1 << 14, 1, True)]
+    assert ntt_pallas.pass_shapes(7, maxk=3) == [(4, 8, 0, False),
+                                                 (3, 16, 1, True)]
 
 
 @pytest.mark.parametrize("log_n,maxk", [(11, 8), (7, 3)])
