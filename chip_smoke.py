@@ -53,15 +53,34 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    and read after it (each of its kernels must have launched): the MSM
    slice, api.msm_bn254_with_cached_bases at n = 2^16 and 2^20 with cached
    bases, every call held to the pool-aggregated big-integer oracle, host
-   wall time of 20 calls (point_ops must not launch on an MSM path); the
-   point API (curves.point.dbl / add, kernel point_ops) running Horner
-   over the 2^16 call's window sums on the card, held to the host's Horner
-   and the oracle; the BLS MSMs, each curve counted on its own,
-   after a check that the bases ingest on the card equals the CPU's for
-   48-byte coordinates: api.msm_bls12_377 / api.msm_bls12_381 (bases
-   bytes in every call) and api.msm_with_cached_bases at 2^16 and 2^20,
-   5 timed calls at 2^16, 10 (alias) and 20 (cached) at 2^20, every blob
-   equal to the oracle's; the NTT
+   wall time of 20 calls (point_ops must not launch on an MSM path up to
+   2^20 points); the point API (msm.horner: curves.point.dbl / add,
+   kernel point_ops) over the 2^16 call's window sums on the card, held to
+   the host's Horner and the oracle; the BLS MSMs, each curve counted on
+   its own, after a check that the bases ingest on the card equals the
+   CPU's for 48-byte coordinates: api.msm_bls12_377 / api.msm_bls12_381
+   (bases bytes in every call) and api.msm_with_cached_bases at 2^16 and
+   2^20, 5 timed calls at 2^16, 10 (alias) and 20 (cached) at 2^20, every
+   blob equal to the oracle's; the array-level msm.msm (window sums, then
+   msm.horner on the card) at 2^16 and 2^20 (BN254) and 2^20
+   (BLS12-381), equal to the oracle, with W (c + 1) point_ops launches;
+   fold_sum, total_sum and scalar_mul (a full-width scalar) on 2^16 points
+   on the card, equal to the host's big integers; the MSM above 2^20:
+   api.msm_with_cached_bases (BN254 through its alias) at 2^22 and 2^24
+   for the three curves, a first call and 3 (2^22) or 2 (2^24) timed
+   calls, each blob equal to the oracle's, each size counted on its own
+   with exactly the chunked path's launches (a chunk of 2^20 points runs
+   hist, phase A and the bucket assembly once a window group, padd sums
+   the chunks' tables chunks - 1 times, wscan launches twice, digits
+   once); for BN254 at 2^22 and 2^24 a measurement of the chunks against
+   window groups alone (msm.CHUNK_N = n): byte-API calls in the order
+   chunked, groups, groups, chunked, the window sums' CUDA-event ms, peak
+   memory and launches; api.msm_host (the native C++ library, no
+   kernel) for the three curves at 2^12 in both coordinate types, each
+   blob equal to the one computed from the oracle and the blob's Z;
+   api.ntt_v1 with a zero root at 2^10 under auto, mxu and pallas, equal
+   to the stagewise engine's bytes (fmul must launch, dft and small_ntt
+   must not); the NTT
    byte API with the four-step engine
    (PANDA_NTT_IMPL=auto): api.ntt_bn254, api.intt and api.ntt_bn254_v1 (a
    non-default root) at 2^20 and 2^22, held to a bit-exact INTT roundtrip
@@ -85,13 +104,15 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    lookups of a base point in phase A's own layout (index_select from the
    (8, 2^20) word tensors of the 2^20 MSM session), beside the probe's
    R = 16 row gather and phase A's device ms a launch at 2^20;
-5. where the time goes: the MSM call (BN254 at both sizes, BLS12-381 at
-   2^20) and the 2^20 NTT call of each engine run stage by stage with a
-   device synchronise around each stage, median, min and max of 10 calls;
-6. the device's busy share of one call each (MSM 2^16 and 2^20, BLS12-377
-   and BLS12-381 MSM 2^20, NTT 2^20 and 2^22 with each engine), and each
-   kernel's launches and device ms in that call, from torch.profiler (a
-   2^20 MSM call launches hist once and point_ops never); each kernel of a
+5. where the time goes: the MSM call (BN254 at 2^16, 2^20 and, 3 calls,
+   2^24; BLS12-381 at 2^20) and the 2^20 NTT call of each engine run stage
+   by stage with a device synchronise around each stage, median, min and
+   max of 10 calls;
+6. the device's busy share of one call each (MSM 2^16, 2^20 and 2^24,
+   BLS12-377 and BLS12-381 MSM 2^20, NTT 2^20 and 2^22 with each engine),
+   and each kernel's launches and device ms in that call, from
+   torch.profiler (a 2^20 MSM call launches hist once and point_ops never,
+   a 2^24 call exactly the chunked path's launches); each kernel of a
    2^20 call ranked by its device ms less its launches' bounds, each at
    its own shape.
 
@@ -319,33 +340,59 @@ def bound(nbytes: float, ops: float, rate: float) -> dict:
             "bound_by": "bytes" if b_ms >= o_ms else "operations"}
 
 
+_POOLS: dict = {}
+
+
+def pool_points(curve, seed: int, count: int) -> list:
+    """``count`` random points of ``curve`` from ``seed``, made once a run
+    (a random multiple of the generator each: seconds of host big
+    integers)."""
+    from panda_tpu_torch.reference import curve_ref
+    key = (curve.name, seed, count)
+    if key not in _POOLS:
+        rng = random.Random(seed)
+        _POOLS[key] = [curve_ref.random_point(curve, rng)
+                       for _ in range(count)]
+    return _POOLS[key]
+
+
 def pool_inputs(curve, n: int, seed: int, oracle: bool = True):
-    """Pool-structured MSM inputs: <= 1024 distinct random points and a
-    pool of full-range scalars, indexed by numpy draws.  Returns the bases
-    and scalar blobs and the pool-aggregated oracle result (None when
-    ``oracle`` is False)."""
+    """Pool-structured MSM inputs: <= 1024 distinct random points (one pool
+    a curve and seed) and a pool of full-range scalars, indexed by numpy
+    draws that depend on n too.  Returns the bases and scalar blobs and
+    the pool-aggregated oracle result (None when ``oracle`` is False)."""
     from panda_tpu_torch.fields import mont
     from panda_tpu_torch.reference import curve_ref
     fp, fr = curve.fp, curve.fr
-    rng = random.Random(seed)
-    npr = np.random.default_rng(seed)
-    pts = [curve_ref.random_point(curve, rng) for _ in range(min(n, 1024))]
+    pts = pool_points(curve, seed, min(n, 1024))
+    rng = random.Random(seed + 1)
+    npr = np.random.default_rng([seed, n])
     svals = [rng.randrange(fr.modulus) for _ in range(min(n, 1 << 16))]
     pidx = npr.integers(len(pts), size=n)
     sidx = npr.integers(len(svals), size=n)
     xw = mont.ints_to_words(fp, [fp.to_wire_int(x) for x, _ in pts])
     yw = mont.ints_to_words(fp, [fp.to_wire_int(y) for _, y in pts])
     sw = mont.ints_to_words(fr, [fr.to_wire_int(s) for s in svals])
-    xy = np.stack([xw[:, pidx].T, yw[:, pidx].T], axis=1)    # (n, 2, L)
-    bases = np.ascontiguousarray(xy).astype("<u4").tobytes()
-    scalars = np.ascontiguousarray(sw[:, sidx].T).astype("<u4").tobytes()
+    table = np.ascontiguousarray(np.concatenate([xw.T, yw.T], axis=1))
+    bases = table[pidx].tobytes()                 # x || y a point, LE words
+    scalars = np.ascontiguousarray(sw.T)[sidx].tobytes()
     if not oracle:
         return bases, scalars, None
-    agg = [0] * len(pts)
-    for p, s in zip(pidx.tolist(), sidx.tolist()):
-        agg[p] += svals[s]
-    agg = [a % fr.modulus for a in agg]
-    return bases, scalars, curve_ref.msm_oracle(curve, pts, agg)
+    return bases, scalars, curve_ref.msm_oracle(curve, pts, aggregate(
+        pidx, sidx, mont.ints_to_words(fr, svals), fr.modulus, len(pts)))
+
+
+def aggregate(pidx, sidx, words, r: int, points: int) -> list:
+    """agg[p] = the sum, mod r, of the pool scalars drawn beside pool point
+    p, the scalars given as their (8, S) plain 32-bit words: one float64
+    bincount a word, exact while a point's draws times 2^32 stay below
+    2^53."""
+    if np.bincount(pidx, minlength=points).max() >= 1 << 21:
+        raise ValueError("aggregate: too many draws of one point")
+    sums = [np.bincount(pidx, weights=w.astype(np.float64)[sidx],
+                        minlength=points) for w in words]
+    return [sum(int(col[p]) << (32 * j) for j, col in enumerate(sums)) % r
+            for p in range(points)]
 
 
 def kernel_checks(curve, n: int, device, timer: DeviceTimes,
@@ -990,7 +1037,7 @@ def slice_inputs(curve, log_n: int, device) -> dict:
     from panda_tpu_torch import InitUnitType, PandaManager
     n = 1 << log_n
     t0 = time.perf_counter()
-    bases, scalars, exp = pool_inputs(curve, n, 20260816 + log_n)
+    bases, scalars, exp = pool_inputs(curve, n, 20260816)
     fp = curve.fp
     want = b"".join(fp.to_wire_int(v).to_bytes(fp.n_bytes, "little")
                     for v in ((*exp, 1) if exp is not None else (0, 1, 0)))
@@ -1085,55 +1132,310 @@ def window_sums(sl: dict):
 
 def point_api_path(sl: dict, sums, c: int) -> dict:
     """The point API on the card (curves.point.dbl / add, kernel point_ops,
-    which the MSM path no longer launches): Horner over the window sums
-    ``sums`` of a slice's inputs, c doublings and one add a window on
-    (L, 1) points, held to msm.host_horner on the same sums and to the
-    oracle's blob; host wall time and launches."""
+    which the MSM path runs only to sum chunks): msm.horner over the window
+    sums ``sums`` of a slice's inputs, c doublings and one add a window,
+    held to msm.host_horner on the same sums and to the oracle's blob;
+    host wall time and launches."""
     import torch
-    from panda_tpu_torch.curves import point as cp
-    from panda_tpu_torch.curves.point import ProjPoint
-    from panda_tpu_torch.fields import mont
     from panda_tpu_torch.ops import _ext, msm
     gm, curve, log_n = sl["gm"], sl["curve"], sl["log_n"]
     W = sums.x.shape[1]
     before = _ext.launches["point_ops"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    acc = cp.identity(curve, (1,), gm.device)
-    for w in reversed(range(W)):
-        for _ in range(c):
-            acc = cp.dbl(curve, acc)
-        acc = cp.add(curve, acc, ProjPoint(*(a[:, w:w + 1] for a in sums)))
-    aff = cp.to_affine(curve, acc)
+    acc = msm.horner(curve, sums, c)
+    got = affine_ints(curve, acc)
     ms = (time.perf_counter() - t0) * 1e3
-    p = curve.fp.modulus
-    rinv = pow(mont.radix(curve.fp), -1, p)
-    got = None if bool(cp.is_identity(curve, acc)[0]) else tuple(
-        mont.words_to_ints(a)[0] * rinv % p for a in aff)
     if got != msm.host_horner(curve, sums, c) or \
             gm.format_affine_result(got) != sl["want"]:
         raise AssertionError(f"point API Horner ({curve.name} 2^{log_n}): "
                              "result != host Horner / oracle")
     launched = _ext.launches["point_ops"] - before
-    log(f"[point API {curve.name} 2^{log_n}] Horner over {W} window sums on "
-        f"the card: {launched} point_ops launches, {ms:.3f} ms (host clock, "
-        "the launches paced by the host); equal to host Horner and oracle")
+    log(f"[point API {curve.name} 2^{log_n}] msm.horner over {W} window sums "
+        f"on the card: {launched} point_ops launches, {ms:.3f} ms (host "
+        "clock, the launches paced by the host); equal to host Horner and "
+        "oracle")
     return {"curve": curve.name, "log_n": log_n, "windows": W, "c": c,
             "point_ops_launches": launched, "ms": ms}
 
 
+def affine_ints(curve, pt):
+    """A point (L,) on the card -> its affine (x, y) as plain ints, or None
+    for the identity."""
+    from panda_tpu_torch.curves import point as cp
+    from panda_tpu_torch.fields import mont
+    if bool(cp.is_identity(curve, pt)):
+        return None
+    p = curve.fp.modulus
+    rinv = pow(mont.radix(curve.fp), -1, p)
+    return tuple(mont.words_to_ints(a)[0] * rinv % p
+                 for a in cp.to_affine(curve, pt))
+
+
+def array_msm_path(sl: dict, card: str) -> dict:
+    """The array-level msm.msm of a slice's cached bases and scalar words on
+    the card (window sums as in the byte API, then msm.horner with the
+    point_ops kernel): its point equals the oracle's; launches and host
+    wall time of one call (its first)."""
+    import torch
+    from panda_tpu_torch.ops import _ext, msm
+    gm, curve, log_n = sl["gm"], sl["curve"], sl["log_n"]
+    px, py = gm.d_bases[0]
+    s = gm.ingest_scalars(sl["scalars"])
+    before = dict(_ext.launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q = msm.msm(curve, px, py, s)
+    got = affine_ints(curve, q)
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = {k: _ext.launches[k] - before[k] for k in before}
+    if q.x.shape != (px.shape[0],) or \
+            gm.format_affine_result(got) != sl["want"]:
+        raise AssertionError(f"msm.msm ({curve.name} 2^{log_n}) != oracle")
+    c = msm.window_bits(log_n, bits=curve.fr.bits)
+    W = msm.signed_window_count(curve.fr.bits, c)
+    if launched["point_ops"] != W * (c + 1) + \
+            chunked_launches(curve, sl["n"], 1)["point_ops"]:
+        raise AssertionError(f"msm.msm ({curve.name} 2^{log_n}): "
+                             f"{launched['point_ops']} point_ops launches")
+    log(f"[array msm {curve.name} 2^{log_n}] msm.msm equals the oracle; "
+        f"{ms:.3f} ms (host clock, one call); launches {launched} on "
+        f"{card}")
+    return {"curve": curve.name, "log_n": log_n, "ms": ms,
+            "launches": launched}
+
+
+def chunked_launches(curve, n: int, calls: int) -> dict:
+    """The MSM kernels' launches in ``calls`` byte-API MSM calls of n
+    points: a chunk of msm.CHUNK_N points (n at most) runs hist, phase A
+    and the bucket assembly's two launches once a window group, the chunks'
+    bucket tables are summed with chunks - 1 padd launches, and the
+    weighted reduction is wscan's two launches; digits once."""
+    from panda_tpu_torch.ops import msm
+    c = msm.window_bits((n - 1).bit_length(), bits=curve.fr.bits)
+    W = msm.signed_window_count(curve.fr.bits, c)
+    size = min(n, msm.CHUNK_N)
+    chunks = -(-n // size)
+    runs = chunks * -(-W // msm._window_group_size(size, W))
+    per = {"digits": 1,
+           "hist": runs if 1 << (c - 1) >= msm._HIST_MIN_D else 0,
+           "phase_a": runs, "buckets": 2 * runs, "point_ops": chunks - 1,
+           "wscan": 2}
+    return {k: v * calls for k, v in per.items()}
+
+
+def big_msm_path(sl: dict, card: str, reps: int) -> dict:
+    """Phase 4 above 2^20 points: slice_run (a first call, then ``reps``
+    timed ones, each blob held to the oracle), counted on its own; the
+    launches must be exactly chunked_launches'.  Then, not counted, the
+    window sums' batch ms from CUDA events (scalars on the card, a
+    warm-up and 2 calls): the call's device part."""
+    from panda_tpu_torch.ops import msm
+    curve, gm = sl["curve"], sl["gm"]
+    res, counts = counted(MSM_KERNELS + POINT_API_KERNELS,
+                          lambda: slice_run(sl, card, reps))
+    want = chunked_launches(curve, sl["n"], reps + 1)
+    if {k: v for k, v in counts.items() if v} != want:
+        raise AssertionError(f"MSM {curve.name} 2^{sl['log_n']}: "
+                             f"launches {counts}, want {want}")
+    fn = msm.window_sums_fn(curve, msm.window_bits(sl["log_n"],
+                                                   bits=curve.fr.bits))
+    s = gm.ingest_scalars(sl["scalars"])
+    dev = cuda_ms(lambda: fn(*gm.d_bases[0], s, gm.point_major(0)), 2)
+    log(f"[slice {curve.name} 2^{sl['log_n']}] launches over {reps + 1} "
+        f"calls equal the chunked path's: {want}; window sums {dev:.3f} ms "
+        f"on the device (CUDA events, 2 calls) on {card}")
+    return dict(res, launches=counts, window_sums_device_ms=dev)
+
+
+def chunk_vs_groups(sl: dict, card: str, reps: int) -> dict:
+    """A measurement only: BN254 above 2^20 with the default chunks
+    (msm.CHUNK_N) against window groups alone (CHUNK_N = n: one chunk,
+    _PHASE_A_BUDGET / n windows a phase-A launch).  Per mode: byte-API
+    host ms (calls in the order chunked, groups, groups, chunked, each
+    blob held to the oracle), the window sums' batch ms from CUDA events
+    (scalars on the card, a warm-up and ``reps`` calls), the peak device
+    memory of one call above the session's, and one call's launches."""
+    import torch
+    from panda_tpu_torch.ops import _ext, msm
+    from panda_tpu_torch.runtime import api
+    gm, curve, n = sl["gm"], sl["curve"], sl["n"]
+    c = msm.window_bits(sl["log_n"], bits=curve.fr.bits)
+    px, py = gm.d_bases[0]
+    pts = gm.point_major(0)
+    s = gm.ingest_scalars(sl["scalars"])
+    fn = msm.window_sums_fn(curve, c)
+    chunk = {"chunked": msm.CHUNK_N, "groups": n}
+    out = {mode: {"calls_ms": []} for mode in chunk}
+    default = msm.CHUNK_N
+    try:
+        for mode in ("chunked", "groups", "groups", "chunked"):
+            msm.CHUNK_N = chunk[mode]
+            torch.cuda.synchronize()
+            before = dict(_ext.launches)
+            t0 = time.perf_counter()
+            blob = api.msm_bn254_with_cached_bases(gm, sl["scalars"], 0)
+            out[mode]["calls_ms"].append((time.perf_counter() - t0) * 1e3)
+            out[mode]["launches"] = {k: _ext.launches[k] - before[k]
+                                     for k in before if _ext.launches[k]
+                                     - before[k]}
+            if blob != sl["want"]:
+                raise AssertionError(f"MSM 2^{sl['log_n']} ({mode}): blob "
+                                     "!= oracle")
+        for mode, size in chunk.items():
+            msm.CHUNK_N = size
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(gm.device)
+            torch.cuda.reset_peak_memory_stats(gm.device)
+            fn(px, py, s, pts)
+            torch.cuda.synchronize()
+            out[mode]["peak_gib"] = (torch.cuda.max_memory_allocated(
+                gm.device) - base) / 2**30
+            out[mode]["device_ms"] = cuda_ms(lambda: fn(px, py, s, pts), reps)
+            out[mode]["median_ms"] = statistics.median(out[mode]["calls_ms"])
+    finally:
+        msm.CHUNK_N = default
+    log(f"[chunks vs groups {curve.name} 2^{sl['log_n']}] " + "; ".join(
+        f"{mode}: byte API {v['calls_ms']} ms, window sums "
+        f"{v['device_ms']:.3f} ms (CUDA events, {reps} calls), peak "
+        f"{v['peak_gib']:.2f} GiB above the session, launches a call "
+        f"{v['launches']}"
+        for mode, v in out.items()) + f" on {card}")
+    return {"log_n": sl["log_n"], **out}
+
+
+def point_helpers_path(curve, device, card) -> dict:
+    """fold_sum, total_sum and scalar_mul (curves.point, ops.reduce; kernel
+    point_ops) on 2^16 points drawn from 1024 random ones, on the card:
+    the sums equal the host's big-integer sum (the oracle MSM of the draw
+    counts), scalar_mul of a full-width scalar equals k P for each point
+    (cp.eq against the host's multiples); launches and host ms each."""
+    import torch
+    from panda_tpu_torch.curves import point as cp
+    from panda_tpu_torch.curves.point import AffinePoint
+    from panda_tpu_torch.fields import mont
+    from panda_tpu_torch.ops import _ext
+    from panda_tpu_torch.ops import reduce as red
+    from panda_tpu_torch.reference import curve_ref
+    fp, fr = curve.fp, curve.fr
+    n = 1 << 16
+    pool = pool_points(curve, 20261017, 1024)
+    idx = torch.from_numpy(np.random.default_rng(16).integers(1024, size=n))
+
+    def on_card(pts):
+        """Affine int points -> (L, len) Montgomery words on the card."""
+        return [mont.words_tensor(mont.ints_to_words(
+            fp, [fp.to_wire_int(q[i]) for q in pts]), device)
+            for i in (0, 1)]
+
+    px, py = (t[:, idx.to(device)] for t in on_card(pool))
+    p = cp.from_affine(curve, AffinePoint(px, py))
+    total = curve_ref.msm_oracle(curve, pool, torch.bincount(
+        idx, minlength=1024).tolist())
+    k = random.Random(16).randrange(fr.modulus)
+    kw = torch.from_numpy(mont.ints_to_words(fr, [k])[:, 0].view(np.int32))
+    kx, ky = (t[:, idx.to(device)] for t in on_card(
+        [curve_ref.ec_mul(curve, q, k) for q in pool]))
+    res = {}
+    for name, run, want in (
+            ("fold_sum", lambda: cp.fold_sum(curve, p), None),
+            ("total_sum", lambda: red.total_sum(curve, p), None),
+            ("scalar_mul", lambda: cp.scalar_mul(curve, p, kw),
+             cp.from_affine(curve, AffinePoint(kx, ky)))):
+        before = _ext.launches["point_ops"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if want is None:
+            ok = affine_ints(curve, got) == total
+        else:
+            ok = bool(cp.eq(curve, got, want).all())
+        if not ok:
+            raise AssertionError(f"{name} ({curve.name}, 2^16 points) on the "
+                                 "card != host big integers")
+        res[name] = {"ms": ms,
+                     "point_ops_launches": _ext.launches["point_ops"] - before}
+    log(f"[point helpers {curve.name} 2^16] fold_sum, total_sum and "
+        f"scalar_mul equal the host's big integers; {res} on {card}")
+    return res
+
+
+def msm_host_path(device, card: str) -> list:
+    """api.msm_host for the three curves at 2^12 with both coordinate
+    types: the native library's blob equals the one the smoke computes
+    from the oracle's affine (x, y) and the blob's own Z (Jacobian
+    (x Z^2, y Z^3, Z), projective (x Z, y Z, Z)); host ms a call."""
+    from panda_tpu_torch import PandaManager
+    from panda_tpu_torch.curves.config import CURVES
+    from panda_tpu_torch.runtime import api
+    from panda_tpu_torch.runtime.manager import ResultCoordinateType
+    out = []
+    for name, curve in CURVES.items():
+        fp = curve.fp
+        bases, scalars, exp = pool_inputs(curve, 1 << 12, 20260816)
+        if exp is None:
+            raise AssertionError("msm_host gate: the oracle is the identity")
+        gm = PandaManager.new(0, curve, device=device)
+        for coords in ResultCoordinateType:
+            gm.set_config(coords)
+            t0 = time.perf_counter()
+            blob = api.msm_host(gm, scalars, bases)
+            ms = (time.perf_counter() - t0) * 1e3
+            nb, p = fp.n_bytes, fp.modulus
+            z = fp.from_wire_int(int.from_bytes(blob[2 * nb:], "little"))
+            ex, ey = (z * z, z * z * z) if coords == 0 else (z, z)
+            want = b"".join(fp.to_wire_int(v % p).to_bytes(nb, "little")
+                            for v in (exp[0] * ex, exp[1] * ey, z))
+            if blob != want:
+                raise AssertionError(f"msm_host {name} {coords.name}: bytes "
+                                     "!= the oracle's")
+            out.append({"curve": name, "coords": coords.name, "ms": ms})
+    log("[msm_host 2^12] every blob equals the oracle's (both coordinate "
+        "types); host ms a call: " + ", ".join(
+            f"{r['curve']} {r['coords'].lower()} {r['ms']:.3f}" for r in out)
+        + f" on {card}")
+    return out
+
+
+def zero_root_path(device) -> dict:
+    """ntt_v1 with a zero root at 2^10 (BN254) under auto, mxu and pallas
+    gives the stagewise engine's bytes (jnp) on the card: every impl takes
+    the stagewise engine for it."""
+    from panda_tpu_torch import InitUnitType, PandaManager
+    from panda_tpu_torch.curves.config import BN254
+    from panda_tpu_torch.runtime import api
+    data, zero = ntt_case(BN254.fr, 10, 1010)["data"], bytes(32)
+    gm = PandaManager.init_all(0, InitUnitType.NTT, device=device)
+    with ntt_engine("jnp"):
+        want = api.ntt_v1(gm, data, 10, zero)
+    for impl in ("auto", "mxu", "pallas"):
+        with ntt_engine(impl):
+            if api.ntt_v1(gm, data, 10, zero) != want:
+                raise AssertionError(f"ntt_v1 zero root 2^10 ({impl}) != "
+                                     "the stagewise engine's bytes")
+    log("[ntt zero root 2^10] auto, mxu and pallas give the stagewise "
+        "engine's bytes")
+    return {"log_n": 10, "impls": ["auto", "mxu", "pallas"]}
+
+
 STAGES = ("ingest: bytes to words (host)", "ingest: copy to device",
-          "digits kernel", "sort + run ends (hist kernel)", "phase A kernel",
-          "bucket assembly", "weighted reduction", "host Horner + blob")
+          "digits kernel", "chunk digits (contiguous columns)",
+          "sort + run ends (hist kernel)", "phase A kernel",
+          "bucket assembly", "chunk tables add (padd kernel)",
+          "weighted reduction", "host Horner + blob")
 
 
 def stage_breakdown(curve, sl: dict, reps: int) -> dict:
     """Phase 5: the byte-API call of phase 4 run stage by stage, with a
     device synchronise around each stage (host clock).  The stages call
-    the functions api._msm_run reaches, in its order; the result is held
-    to the oracle.  Returns per-stage {median_ms, min_ms, max_ms} over
-    ``reps`` calls and the kernel launches of one call."""
+    the functions api._msm_run reaches, in its order (msm.window_sums'
+    chunks and window groups included); the result is held to the oracle.
+    Returns per-stage {median_ms, min_ms, max_ms} over ``reps`` calls and
+    the kernel launches of one call."""
     import torch
+    from panda_tpu_torch.curves import point as cp
     from panda_tpu_torch.curves.point import ProjPoint
     from panda_tpu_torch.fields import mont
     from panda_tpu_torch.ops import _ext, msm, phase_a
@@ -1143,8 +1445,10 @@ def stage_breakdown(curve, sl: dict, reps: int) -> dict:
     pts = gm.point_major(0)
     c = msm.window_bits(log_n, bits=curve.fr.bits)
     W = msm.signed_window_count(curve.fr.bits, c)
-    wg = msm._window_group_size(n, W)
-    m = msm.default_lanes(n, wg, phase_a.resident_threads(curve, gm.device))
+    size = min(n, msm.CHUNK_N)
+    wg = msm._window_group_size(size, W)
+    m = msm.default_lanes(size, wg, phase_a.resident_threads(curve,
+                                                             gm.device))
     if W % wg:
         raise AssertionError("stage breakdown: padded window group")
     rows = {k: [] for k in STAGES}
@@ -1163,18 +1467,28 @@ def stage_breakdown(curve, sl: dict, reps: int) -> dict:
         w = timed(STAGES[0], mont.bytes_to_words, curve.fr, sl["scalars"])
         s = timed(STAGES[1], mont.words_tensor, w, gm.device)
         mags, negs = timed(STAGES[2], msm.signed_digit_arrays, curve.fr, s, c)
-        parts = []
-        for g in range(0, W, wg):
-            st = timed(STAGES[3], msm.sorted_streams, mags[g:g + wg],
-                       negs[g:g + wg], c, m)
-            em = timed(STAGES[4], phase_a.scan, curve, st.keys, st.sidx, px,
-                       py, st.D + 1, pts)
-            b = timed(STAGES[5], msm.assemble_buckets, curve, st, *em)
-            parts.append(timed(STAGES[6], red.weighted_window_sum, curve, b))
-        blob = timed(STAGES[7], lambda: gm.format_affine_result(
-            msm.host_horner(curve, ProjPoint(*(
-                torch.cat([p[i] for p in parts], dim=1) for i in range(3))),
-                c)))
+        acc = None
+        for lo in range(0, n, size):
+            at = min(lo, n - size)
+            d, sg = (timed(STAGES[3], msm._chunk_columns, a, lo, size)
+                     for a in (mags, negs))
+            parts = []
+            for g in range(0, W, wg):
+                st = timed(STAGES[4], msm.sorted_streams, d[g:g + wg],
+                           sg[g:g + wg], c, m)
+                em = timed(STAGES[5], phase_a.scan, curve, st.keys, st.sidx,
+                           px[:, at:at + size], py[:, at:at + size],
+                           st.D + 1, None if pts is None
+                           else pts[at:at + size])
+                parts.append(timed(STAGES[6], msm.assemble_buckets, curve,
+                                   st, *em))
+            part = ProjPoint(*(torch.cat([p[i] for p in parts], dim=1)
+                               for i in range(3)))
+            acc = part if acc is None else timed(STAGES[7], cp.add, curve,
+                                                 acc, part)
+        sums = timed(STAGES[8], red.weighted_window_sum, curve, acc)
+        blob = timed(STAGES[9], lambda: gm.format_affine_result(
+            msm.host_horner(curve, sums, c)))
         if blob != sl["want"]:
             raise AssertionError(f"stage breakdown {curve.name} 2^{log_n}: "
                                  "blob != oracle")
@@ -1183,9 +1497,9 @@ def stage_breakdown(curve, sl: dict, reps: int) -> dict:
     totals = [sum(rows[k][i] for k in STAGES) for i in range(reps)]
     out = {k: spread(v) for k, v in rows.items()}
     out["total"] = spread(totals)
-    log(f"[stages {curve.name} 2^{log_n}] c={c} W={W} groups={W // wg} "
-        f"lanes={m}; ms per call over {reps} calls, synchronised stages "
-        "(median / min / max):")
+    log(f"[stages {curve.name} 2^{log_n}] c={c} W={W} chunks={-(-n // size)} "
+        f"groups={W // wg} lanes={m}; ms per call over {reps} calls, "
+        "synchronised stages (median / min / max):")
     for k, v in out.items():
         log(f"  {k:<34} {v['median_ms']:9.3f} {v['min_ms']:9.3f} "
             f"{v['max_ms']:9.3f}")
@@ -1906,6 +2220,46 @@ def main() -> int:
                 for sl in bls_sizes[cv.name]
                 for entry in ("alias", "cached")],
             absent=POINT_API_KERNELS)
+    mark("BLS MSM paths")
+
+    # the array-level msm.msm (Horner on the card) and the point helpers,
+    # each curve counted on its own
+    arr_runs, arr_counts = counted(
+        MSM_KERNELS + POINT_API_KERNELS,
+        lambda: [array_msm_path(sl, card) for sl in sizes])
+    arr_381, arr_381_counts = counted(
+        MSM_KERNELS + POINT_API_KERNELS,
+        lambda: array_msm_path(bls_sizes["bls12_381"][1], card))
+    helpers, helper_counts = counted(
+        POINT_API_KERNELS, lambda: point_helpers_path(BN254, device, card))
+    mark("array msm and point helpers")
+
+    # the MSM above 2^20: 2^22 and 2^24 through msm_with_cached_bases for
+    # the three curves, each counted on its own with its exact launches;
+    # BN254's sessions stay for the chunks-against-groups measurement and
+    # (2^24) phases 5 and 6
+    big_runs, big_counts, big_bn = [], {}, {}
+    for cv in (BN254, *bls_curves):
+        cnt = big_counts.setdefault(cv.name, dict.fromkeys(_ext.KERNELS, 0))
+        for log_n in (22, 24):
+            sl = slice_inputs(cv, log_n, device)
+            run = big_msm_path(sl, card, 3 if log_n == 22 else 2)
+            big_runs.append(run)
+            for k, v in run["launches"].items():
+                cnt[k] += v
+            if cv is BN254:
+                big_bn[log_n] = sl
+            else:
+                sl["gm"].deinit()
+    chunk_groups = [chunk_vs_groups(big_bn[k], card, 3) for k in (22, 24)]
+    big_bn[22]["gm"].deinit()
+    mark("MSM above 2^20")
+    host_runs = msm_host_path(device, card)
+    zero_root, zero_counts = counted(
+        STAGEWISE_KERNELS, lambda: zero_root_path(device),
+        absent=("dft", "small_ntt"))
+    mark("msm_host and the zero-root NTT")
+
     cases = [ntt_case(fr, k, 20261016 + k) for k in (20, 22)]
     bls_case = ntt_case(BLS12_377.fr, 20, 377)
     bls381_case = ntt_case(BLS12_381.fr, 20, 381)
@@ -1938,7 +2292,6 @@ def main() -> int:
         return ntt_slice(BLS12_381, bls381_case, card, 10, device, "pallas",
                          bls381_case["auto"])
 
-    mark("BLS MSM paths")
     ntt_runs, ntt_counts = counted(NTT_KERNELS, four_step)
     r2_runs, r2_counts = counted(RADIX2_KERNELS, radix2)
     bls_runs, bls_counts = counted(BLS_KERNELS, bls12_377)
@@ -1978,9 +2331,20 @@ def main() -> int:
     layout = probe_layout_line(sizes[1], probe_rows, res20["phase_a"]["ms"],
                                card)
     for c in (point_counts, ntt_counts, r2_counts, bls_counts, *b381_counts,
-              *sw_counts.values(), probe_counts, *bls_counts_msm.values()):
+              *sw_counts.values(), probe_counts, *bls_counts_msm.values(),
+              arr_counts, arr_381_counts, helper_counts,
+              *big_counts.values(), zero_counts):
         for k, v in c.items():
             counts[k] += v
+    # each curve's MSM-kernel launches on its paths (the by-curve rows)
+    for c in (arr_counts, helper_counts, big_counts["bn254"]):
+        for k, v in c.items():
+            bn254_counts[k] += v
+    for cv in bls_curves:
+        for c in (big_counts[cv.name],
+                  arr_381_counts if cv is BLS12_381 else {}):
+            for k, v in c.items():
+                bls_counts_msm[cv.name][k] += v
 
     mark("gather probe")
 
@@ -1988,6 +2352,7 @@ def main() -> int:
     from panda_tpu_torch.runtime import api
     stages = [stage_breakdown(BN254, sl, 10) for sl in sizes]
     stages.append(stage_breakdown(BLS12_381, bls_sizes["bls12_381"][1], 10))
+    stages.append(stage_breakdown(BN254, big_bn[24], 3))
     stages += [ntt_stage_breakdown(fr, cases[0], 10, impl) for impl in ENGINES]
     def ntt_call(cs, impl):
         def call():
@@ -2000,6 +2365,10 @@ def main() -> int:
           lambda sl=sl: api.msm_bn254_with_cached_bases(sl["gm"],
                                                         sl["scalars"], 0),
           sl["want"], r["median_ms"]) for sl, r in zip(sizes, runs)] +
+        [("MSM 2^24", lambda: api.msm_bn254_with_cached_bases(
+            big_bn[24]["gm"], big_bn[24]["scalars"], 0), big_bn[24]["want"],
+          next(r["median_ms"] for r in big_runs
+               if (r["curve"], r["log_n"]) == ("bn254", 24)))] +
         [(f"BLS12-{cv.name[-3:]} MSM 2^20",
           lambda sl=bls_sizes[cv.name][1]: api.msm_with_cached_bases(
               sl["gm"], sl["scalars"], 0),
@@ -2009,7 +2378,8 @@ def main() -> int:
           cs["auto"]["out"], run["forward"]["median_ms"])
          for cs, r4, r2 in zip(cases, ntt_runs, r2_runs)
          for impl, run in (("auto", r4), ("pallas", r2))])
-    for sl in (*sizes, *(s for v in bls_sizes.values() for s in v)):
+    for sl in (*sizes, *(s for v in bls_sizes.values() for s in v),
+               big_bn[24]):
         sl["gm"].deinit()
     for cs in (*cases, bls_case, bls381_case):
         for impl in ENGINES:
@@ -2040,6 +2410,11 @@ def main() -> int:
             if "point_ops" in pk or pk.get("hist", {}).get("launches") != 1:
                 raise AssertionError(f"{b['label']}: launches {pk}, want no "
                                      "point_ops and one hist")
+        if b["label"] == "MSM 2^24":
+            pk, want = b["per_kernel"], chunked_launches(BN254, 1 << 24, 1)
+            if {k: v["launches"] for k, v in pk.items()} != want:
+                raise AssertionError(f"MSM 2^24 profiled: launches {pk}, "
+                                     f"want {want}")
     mark("stage breakdowns and busy shares")
     ranking = gap_ranking(busy, call_bounds)
 
@@ -2146,6 +2521,10 @@ def main() -> int:
                     "dft_k4": res["dft_k4"], "msm_2_20_shapes": res20,
                     "dg3_by_R": dg3_by_r, "probe": probe_rows,
                     "phase_a_layout": layout,
+                    "array_msm": [*arr_runs, arr_381],
+                    "point_helpers": helpers, "big_msm": big_runs,
+                    "chunks_vs_groups": chunk_groups, "msm_host": host_runs,
+                    "zero_root": zero_root,
                     "ranking": ranking, "ptxas": usage, "phase_s": phase_s,
                     "card": card}))
     log(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "

@@ -195,3 +195,65 @@ def eq(curve: CurveSpec, p: ProjPoint, q: ProjPoint) -> torch.Tensor:
     same = ((M(p.x, q.z) == M(q.x, p.z)).all(0)
             & (M(p.y, q.z) == M(q.y, p.z)).all(0))
     return same & (is_identity(curve, p) == is_identity(curve, q))
+
+
+def to_jacobian(curve: CurveSpec, p: ProjPoint) -> tuple:
+    """Homogeneous (X : Y : Z) -> Jacobian (X Z, Y Z^2, Z), plain Montgomery
+    arithmetic on the tensors' device (values in [0, 2p), or [0, p) where
+    ``mont.canon``): the reference's result convention."""
+    M = lambda a, b: mont.mul16(curve.fp, a, b)
+    x, y, z = (mont.to_l16(a) for a in p)
+    return mont.from_l16(M(x, z)), mont.from_l16(M(y, M(z, z))), p.z
+
+
+def fold_sum(curve: CurveSpec, pts: ProjPoint) -> ProjPoint:
+    """Sum a batch of points along the LAST axis to one point: ceil(log2 n)
+    levels of pairwise complete adds (one ``add`` a level, so one padd
+    launch a level on the card), an odd level padded with the identity."""
+    n = pts.x.shape[-1]
+    while n > 1:
+        if n % 2:
+            pad = identity(curve, tuple(pts.x.shape[1:-1]) + (1,),
+                           pts.x.device)
+            pts = ProjPoint(*(torch.cat([a, b], dim=-1)
+                              for a, b in zip(pts, pad)))
+            n += 1
+        pts = add(curve, ProjPoint(*(a[..., 0:n:2] for a in pts)),
+                  ProjPoint(*(a[..., 1:n:2] for a in pts)))
+        n //= 2
+    return ProjPoint(*(a[..., 0] for a in pts))
+
+
+def scalar_mul_int(curve: CurveSpec, p: ProjPoint, k: int) -> ProjPoint:
+    """k p for a Python integer k >= 0: double-and-add from the top bit,
+    one ``dbl`` a bit and one ``add`` a set bit."""
+    if k == 0:
+        return identity(curve, tuple(p.x.shape[1:]), p.x.device)
+    acc = None
+    for bit in bin(k)[2:]:
+        if acc is not None:
+            acc = dbl(curve, acc)
+        if bit == "1":
+            acc = p if acc is None else add(curve, acc, p)
+    return acc
+
+
+def scalar_mul(curve: CurveSpec, p: ProjPoint, k_words: torch.Tensor,
+               bits: int | None = None) -> ProjPoint:
+    """k p for every point of the batch, k given as its canonical (8,)
+    32-bit words (not Montgomery form), a tensor on any device.  A
+    branch-free ladder from the low bit: one ``add``, one ``dbl`` and one
+    ``select`` a bit over ``bits`` bits (default the scalar field's), so
+    the work does not depend on k."""
+    if bits is None:
+        bits = curve.fr.bits
+    if k_words.shape != (8,):
+        raise ValueError("scalar_mul: k must be (8,) 32-bit words")
+    shifts = torch.arange(32, dtype=torch.int64, device=k_words.device)
+    kb = ((k_words.to(torch.int64).unsqueeze(1) >> shifts) & 1).reshape(-1)
+    kb = kb[:bits].to(device=p.x.device, dtype=torch.bool)
+    acc, base = identity(curve, tuple(p.x.shape[1:]), p.x.device), p
+    for i in range(bits):
+        acc = select(kb[i], add(curve, acc, base), acc)
+        base = dbl(curve, base)
+    return acc

@@ -14,14 +14,20 @@ Counterpart of ``panda_tpu/ops/msm.py`` with the same decomposition:
    lanes' tails with key b: two launches of ``csrc/buckets.cu`` (a
    segmented reduction of the tails, then a thread a bucket);
 5. the weighted reduction sum_d d B_d per window (``csrc/wscan.cu``);
-6. Horner across windows on the host, in big integers.
+6. Horner across windows on the host, in big integers (the byte API), or
+   on the device with the point kernels (:func:`horner`, :func:`msm`).
 
-Point-chunking beyond 2^20 points (the JAX package's
-``_window_sums_chunked``, tuned to a TPU gather cliff) is not ported.
+Above ``chunk_n`` points (:data:`CHUNK_N`, 2^20 unless
+``PANDA_MSM_CHUNK_LOG`` says otherwise) the points run in chunks, as the
+JAX package's ``_window_sums_chunked``: each chunk takes steps 2-4 to its
+dense bucket tables, successive chunks' tables are summed with one complete
+add (``curves.point.add``, the ``point_ops`` padd kernel on the card), and
+one weighted reduction runs at the end.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -39,8 +45,9 @@ from . import hist as hist_ops
 from . import phase_a
 from . import reduce as red
 
-# Largest n the port runs; beyond it the JAX package chunks the points.
-MAX_N = 1 << 20
+# Points a chunk: above it window_sums runs the points in chunks of this
+# size, as the JAX package does (its _CHUNK_N, the same variable).
+CHUNK_N = 1 << int(os.environ.get("PANDA_MSM_CHUNK_LOG", "20"))
 
 # Phase A's geometry.  One launch runs W_g * m threads, each a chain of
 # S = n / m mixed adds that depend on each other, so the card is filled by
@@ -299,32 +306,70 @@ def _window_group_size(n: int, W: int) -> int:
     return min(max(_PHASE_A_BUDGET // max(n, 1), 1), W)
 
 
-def window_sums(curve: CurveSpec, px, py, digits, signs, c: int,
-                pts=None) -> ProjPoint:
-    """Per-window sums G_w as (L, W) coordinates.  Windows run in groups
-    of at most _PHASE_A_BUDGET / n, which bounds the staged memory: one
-    group up to 2^20 points.  ``pts`` is phase_a.point_major(px, py) if the
-    caller holds it."""
+def _chunk_columns(a: torch.Tensor, lo: int, size: int) -> torch.Tensor:
+    """Columns [lo, lo + size) of (W, n) digits or signs, contiguous; a last
+    chunk that would run past n is the last ``size`` columns instead, with
+    the columns an earlier chunk took set to 0 (digit 0: the identity)."""
+    n = a.shape[1]
+    if lo + size <= n:
+        return a[:, lo:lo + size].contiguous()
+    out = a[:, n - size:].clone()
+    out[:, :lo - (n - size)] = 0
+    return out
+
+
+def _group_tables(curve: CurveSpec, px, py, digits, signs, c: int, m: int,
+                  wg: int, pts) -> ProjPoint:
+    """Bucket tables (L, Wp, D) of every window of one chunk, in groups of
+    ``wg`` windows (the last group padded with digit 0: identity
+    buckets), Wp the padded window count."""
     W, n = digits.shape
-    if n > MAX_N:
-        raise NotImplementedError(
-            f"MSM of {n} > 2^20 points: the point-chunked path is not ported "
-            "yet (ROADMAP: the chunked MSM path above 2^20)")
-    wg = _window_group_size(n, W)
-    if pts is None and not _ext.on_cpu("window_sums", px):
-        pts = phase_a.point_major(px, py)          # once for every group
-    m = default_lanes(n, wg, phase_a.resident_threads(curve, px.device))
     parts = []
     for g in range(0, W, wg):
         d, s = digits[g:g + wg], signs[g:g + wg]
-        if d.shape[0] < wg:                     # pad: digit 0 -> identity
+        if d.shape[0] < wg:
             extra = wg - d.shape[0]
             d = torch.cat([d, d.new_zeros((extra, n))])
             s = torch.cat([s, s.new_zeros((extra, n))])
-        buckets = _bucket_tables(curve, px, py, d, s, c, m, pts)
-        parts.append(red.weighted_window_sum(curve, buckets))
-    return ProjPoint(*(torch.cat([p[i] for p in parts], dim=1)[:, :W]
+        parts.append(_bucket_tables(curve, px, py, d, s, c, m, pts))
+    if len(parts) == 1:
+        return parts[0]
+    return ProjPoint(*(torch.cat([p[i] for p in parts], dim=1)
                        for i in range(3)))
+
+
+def window_sums(curve: CurveSpec, px, py, digits, signs, c: int,
+                pts=None, chunk_n: int | None = None) -> ProjPoint:
+    """Per-window sums G_w as (L, W) coordinates.
+
+    Points run in chunks of ``chunk_n`` (default :data:`CHUNK_N`), a
+    chunk's windows in groups of at most _PHASE_A_BUDGET / chunk_n, which
+    bounds the staged memory (one group up to 2^20 points).  Each chunk
+    yields its dense bucket tables; the chunks' tables are summed with one
+    complete add each (buckets are sums, so the chunks' order does not
+    matter), and the weighted reduction runs once.  A last chunk that
+    would run past n takes the last ``chunk_n`` points with the digits of
+    those an earlier chunk took set to 0, so every chunk has one shape and
+    the cached point-major table is sliced by rows, never copied.  ``pts``
+    is phase_a.point_major(px, py) if the caller holds it.  On the card
+    above ``chunk_n``: phase A, hist and the bucket assembly launch once a
+    chunk and group, padd chunks - 1 times, wscan twice."""
+    W, n = digits.shape
+    size = min(n, CHUNK_N if chunk_n is None else chunk_n)
+    if pts is None and not _ext.on_cpu("window_sums", px):
+        pts = phase_a.point_major(px, py)          # once for every chunk
+    wg = _window_group_size(size, W)
+    m = default_lanes(size, wg, phase_a.resident_threads(curve, px.device))
+    acc = None
+    for lo in range(0, n, size):
+        at = min(lo, n - size)                      # the chunk's first point
+        part = _group_tables(
+            curve, px[:, at:at + size], py[:, at:at + size],
+            _chunk_columns(digits, lo, size), _chunk_columns(signs, lo, size),
+            c, m, wg, None if pts is None else pts[at:at + size])
+        acc = part if acc is None else cp.add(curve, acc, part)
+    sums = red.weighted_window_sum(curve, acc)
+    return ProjPoint(*(a[:, :W] for a in sums))
 
 
 def window_sums_fn(curve: CurveSpec, c: int):
@@ -354,3 +399,29 @@ def host_horner(curve: CurveSpec, sums: ProjPoint, c: int):
         gy = ys[w] * rinv % p * zi % p
         acc = curve_ref.ec_add(curve, acc, (gx, gy))
     return acc
+
+
+def horner(curve: CurveSpec, sums: ProjPoint, c: int) -> ProjPoint:
+    """Combine (L, W, *batch) window sums most significant window first, c
+    doublings and one complete add a window, on the sums' device (the
+    point_ops kernel on the card): sum_w 2^(c w) G_w as (L, *batch)."""
+    acc = cp.identity(curve, tuple(sums.x.shape[2:]), sums.x.device)
+    for w in reversed(range(sums.x.shape[1])):
+        for _ in range(c):
+            acc = cp.dbl(curve, acc)
+        acc = cp.add(curve, acc, ProjPoint(*(a[:, w] for a in sums)))
+    return acc
+
+
+def msm(curve: CurveSpec, px, py, scalars, c: int | None = None
+        ) -> ProjPoint:
+    """sum_i s_i P_i as one projective point (L,) on the tensors' device.
+    ``px``, ``py``: (L, n) canonical Montgomery affine coordinates;
+    ``scalars``: (8, n) Montgomery scalar words (any value below 2^256).
+    The window sums run as in the byte API (chunked above
+    :data:`CHUNK_N`), Horner on the device (:func:`horner`)."""
+    n = px.shape[-1]
+    if c is None:
+        c = window_bits(max(n - 1, 1).bit_length(), bits=curve.fr.bits)
+    mags, negs = signed_digit_arrays(curve.fr, scalars, c)
+    return horner(curve, window_sums(curve, px, py, mags, negs, c), c)

@@ -190,8 +190,10 @@ def run_ntt(spec: FieldSpec, x: torch.Tensor, tables: NttTables,
     if impl not in IMPLS:
         raise ValueError(f"PANDA_NTT_IMPL must be one of {IMPLS}, got "
                          f"{impl!r}")
-    big = tables.log_n >= FUSED_MIN_LOG_N
-    if impl == "mxu" or (impl == "auto" and big):
+    # A zero root takes the stagewise engine under every impl, as in the
+    # JAX package's run_ntt.
+    big = tables.log_n >= FUSED_MIN_LOG_N and tables.omega != 0
+    if tables.omega and (impl == "mxu" or (impl == "auto" and big)):
         plan = tables.plan(inverse, x.device)
         return ntt_mxu.apply_ntt(plan, x, ntt_mxu.plan_tables(plan))
     if impl == "pallas" and big:

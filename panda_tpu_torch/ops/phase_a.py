@@ -90,12 +90,13 @@ def resident_threads(curve: CurveSpec, device: torch.device) -> int:
 
 def scan(curve: CurveSpec, keys, sidx, px, py, dead: int, pts=None):
     """Phase A over all (window, lane) pairs; see the module docstring.
-    ``pts`` is ``point_major(px, py)`` if the caller holds it."""
+    ``pts`` is ``point_major(px, py)`` if the caller holds it (a row slice
+    of a session's table is one); the wrapper then reads (px, py) only
+    for their shape."""
     if _ext.on_cpu("phase_a", keys):
         return scan_plain(curve, keys, sidx, px, py, dead)
     cid = _ext.kernel_field("phase_a", curve, _ext.MSM_CURVES)
-    keys, sidx, px, py = (a.contiguous() for a in (keys, sidx, px, py))
-    _ext.check_cuda("phase_a", keys, sidx, px, py)
+    keys, sidx = keys.contiguous(), sidx.contiguous()
     W, S, m = keys.shape
     if sidx.shape != keys.shape or px.shape != py.shape:
         raise ValueError("phase_a: shape mismatch")
@@ -110,9 +111,9 @@ def scan(curve: CurveSpec, keys, sidx, px, py, dead: int, pts=None):
             for _ in range(3)]
     if pts is None:
         pts = point_major(px, py)
-    elif pts.shape != (px.shape[1], 2 * L) or not pts.is_contiguous():
+    elif pts.shape != (px.shape[1], 2 * L):
         raise ValueError("phase_a: pts is not point_major(px, py)")
-    _ext.check_cuda("phase_a", keys, pts)
+    _ext.check_cuda("phase_a", keys, sidx, pts)
     _ext.launch("phase_a", "ptt_phase_a",
                 [P] * 11 + [I64] * 3 + [I32] * 2,
                 [keys.data_ptr(), sidx.data_ptr(), pts.data_ptr(),

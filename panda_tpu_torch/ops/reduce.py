@@ -1,4 +1,5 @@
-"""Point-reduction primitives for the MSM bucket tables.
+"""Point-reduction primitives for the MSM bucket tables, and
+:func:`total_sum` of a batch of points.
 
 Counterpart of ``panda_tpu/ops/reduce.py``.  PyTorch runs eagerly, so the
 JAX package's one-add-instance ``fori_loop``/``scan`` bodies become plain
@@ -80,6 +81,15 @@ def dbl_pow2(curve: CurveSpec, pt: ProjPoint, log_k: int) -> ProjPoint:
     for _ in range(log_k):
         pt = cp.dbl_plain(curve, pt)
     return pt
+
+
+def total_sum(curve: CurveSpec, pts: ProjPoint) -> ProjPoint:
+    """Sum all points along the last axis to one point: the log-depth fold
+    ``curves.point.fold_sum``, one complete add a level (a padd launch on
+    the card).  The JAX package scans n / lanes adds and folds the lanes,
+    to keep XLA's program small; eagerly the fold's ceil(log2 n) levels
+    are the fewest launches, and the sum is the same point."""
+    return cp.fold_sum(curve, pts)
 
 
 def lane_split(batch: int, d: int) -> tuple:

@@ -1,20 +1,25 @@
 """Byte-level MSM and NTT API.
 
-Counterpart of ``panda_tpu/runtime/api.py`` (without ``msm_host``): the
-same entry points and curve-suffixed aliases, the same wire contract (LE
-Montgomery bytes in; a 3-field result blob, or the transformed elements,
-out) and the same ``PandaError`` codes for malformed input.
+Counterpart of ``panda_tpu/runtime/api.py``: the same entry points and
+curve-suffixed aliases, the same wire contract (LE Montgomery bytes in; a
+3-field result blob, or the transformed elements, out), the same
+``PandaError`` codes for malformed input and the same trace labels
+(``utils/trace.py``).
 
-On the card the MSM (up to 2^20 points) and the NTT run for BN254,
-BLS12-377 and BLS12-381 (48-byte base coordinates for the BLS curves).
+On the card the MSM (any n; chunks of 2^20 points above 2^20) and the NTT
+run for BN254, BLS12-377 and BLS12-381 (48-byte base coordinates for the
+BLS curves).  ``msm_host`` runs the native C++ host MSM and no kernel.
 """
 
 from __future__ import annotations
 
 from ..curves.config import BLS12_377, BLS12_381, BN254
+from ..curves.point import ProjPoint
 from ..fields import mont
+from ..interop import native
 from ..ops import msm as msm_ops
 from ..ops import ntt as ntt_ops
+from ..utils import trace
 from .errors import PandaError, PandaRuntimeError
 from .manager import PandaManager
 
@@ -45,8 +50,12 @@ def _msm_run(gm: PandaManager, scalars, bases_xy, pts=None) -> bytes:
     curve = gm.curve
     c = msm_ops.window_bits(max(scalars.shape[-1] - 1, 1).bit_length(),
                             bits=curve.fr.bits)
-    sums = msm_ops.window_sums_fn(curve, c)(*bases_xy, scalars, pts)
-    return gm.format_affine_result(msm_ops.host_horner(curve, sums, c))
+    with trace.timer("msm: window sums (device)"):
+        sums = msm_ops.window_sums_fn(curve, c)(*bases_xy, scalars, pts)
+        sums = ProjPoint(*(a.cpu() for a in sums))   # d2h: W points
+    with trace.timer("msm: horner (host)"):
+        acc = msm_ops.host_horner(curve, sums, c)
+    return gm.format_affine_result(acc)
 
 
 def _cached(items: list, index: int, what: str):
@@ -86,6 +95,19 @@ def msm_with_cached_input(gm: PandaManager, scalars_index: int = 0,
     return _msm_run(gm, scalars, bases, gm.point_major(bases_index))
 
 
+def msm_host(gm: PandaManager, scalars_bytes: bytes,
+             bases_bytes: bytes) -> bytes:
+    """``panda_msm_bn254_gpu_host``: the native C++ host MSM
+    (``interop/native.py``) on the session's curve, in its
+    ``result_coordinate_type``: Jacobian (X Z, Y Z^2, Z) or homogeneous
+    (X, Y, Z) of the library's projective result.  Raises RuntimeError
+    when the library cannot be built; there is no other host path."""
+    _check_msm(_count(scalars_bytes, gm.curve.fr.n_bytes),
+               _count(bases_bytes, 2 * gm.curve.fp.n_bytes))
+    return native.msm_host(gm.curve, scalars_bytes, bases_bytes,
+                           int(gm.result_coordinate_type))
+
+
 # ---------------------------------------------------------------------------
 # NTT
 # ---------------------------------------------------------------------------
@@ -100,8 +122,13 @@ def _ntt_run(gm: PandaManager, data: bytes, log_n: int,
         raise PandaRuntimeError(PandaError.INVALID_CONFIGURATION,
                                 f"expected 2^{log_n} elements")
     tables = gm.ntt_tables(log_n, omega_int)
-    x = mont.bytes_to_tensor(fr, data, gm.device)
-    return mont.tensor_to_bytes(ntt_ops.run_ntt(fr, x, tables, inverse))
+    with trace.timer("ntt: h2d + domain shift"):
+        x = mont.bytes_to_tensor(fr, data, gm.device)
+    with trace.timer("ntt: execute"):
+        y = ntt_ops.run_ntt(fr, x, tables, inverse)
+        trace.wait(y)
+    with trace.timer("ntt: d2h result"):
+        return mont.tensor_to_bytes(y)
 
 
 def ntt(gm: PandaManager, data: bytes, log_n: int) -> bytes:
@@ -143,6 +170,9 @@ def msm_bn254_with_cached_scalars(gm, bases, idx=0):
 
 def msm_bn254_with_cached_input(gm, sidx=0, bidx=0):
     _curve_guard(gm, BN254); return msm_with_cached_input(gm, sidx, bidx)
+
+def msm_bn254_host(gm, scalars, bases):
+    _curve_guard(gm, BN254); return msm_host(gm, scalars, bases)
 
 def ntt_bn254(gm, data, log_n):
     _curve_guard(gm, BN254); return ntt(gm, data, log_n)

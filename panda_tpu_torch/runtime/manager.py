@@ -200,8 +200,9 @@ class PandaManager:
 
     # -- config and lifecycle tail ----------------------------------------
     def set_config(self, coordinate_type: ResultCoordinateType) -> None:
-        """Jacobian vs Projective output.  Results are affine-normalised
-        (z = 1), where both encodings give the same bytes."""
+        """Jacobian vs Projective output.  The device MSM's results are
+        affine-normalised (z = 1), where both encodings give the same
+        bytes; ``api.msm_host`` returns the native library's encoding."""
         self.result_coordinate_type = ResultCoordinateType(coordinate_type)
 
     def sync(self) -> None:

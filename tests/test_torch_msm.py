@@ -150,13 +150,35 @@ def test_error_codes(case, gm):
         [(c.name, int(c)) for c in JPandaError]
 
 
-def test_msm_above_2_20_is_not_ported():
+def test_chunked_path_and_array_msm_match_jax_and_oracle(case, gm,
+                                                        monkeypatch):
+    """The byte API with CHUNK_N = 16 (4 chunks) and 24 (the last chunk
+    padded with digit-0 points) gives the JAX package's blob for the same
+    case and the oracle's, and its window sums are point-equal to the
+    unchunked path's; msm.msm (window sums, then Horner with the point ops)
+    gives one point whose blob is the same."""
+    from panda_tpu_torch.curves import point as cp
     from panda_tpu_torch.ops import msm
-    n = (1 << 20) + 1
-    digits = torch.zeros((1, n), dtype=torch.int32)
-    px = torch.zeros((8, n), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        msm.window_sums(BN254, px, px, digits, digits.bool(), 16)
+    want = japi.msm_bn254_with_cached_bases(case["jgm"], case["sblob"], 0)
+    c = msm.window_bits(6, bits=FR.bits)
+    px, py = gm.d_bases[0]
+    scalars = gm.ingest_scalars(case["sblob"])
+    mags, negs = msm.signed_digit_arrays(FR, scalars, c)
+    whole = msm.window_sums(BN254, px, py, mags, negs, c)
+    for chunk_n in (16, 24):
+        got = msm.window_sums(BN254, px, py, mags, negs, c, chunk_n=chunk_n)
+        assert bool(cp.eq(BN254, got, whole).all()), chunk_n
+        monkeypatch.setattr(msm, "CHUNK_N", chunk_n)
+        blob = api.msm_bn254_with_cached_bases(gm, case["sblob"], 0)
+        assert blob == want and _decode(blob) == case["exp"], chunk_n
+    monkeypatch.undo()
+    q = msm.msm(BN254, px, py, scalars)
+    assert q.x.shape == (8,)
+    rinv = pow(mont.radix(FP), -1, FP.modulus)
+    aff = None if bool(cp.is_identity(BN254, q)) else tuple(
+        mont.words_to_ints(a)[0] * rinv % FP.modulus
+        for a in cp.to_affine(BN254, q))
+    assert aff == case["exp"] and gm.format_affine_result(aff) == want
 
 
 # Threads of one wave of phase A on the H100, as its builds report them
@@ -287,7 +309,10 @@ def test_package_imports_without_jax():
     res = _run(["-c", "import sys, panda_tpu_torch\n"
                 "from panda_tpu_torch import PandaManager, BN254, PandaError\n"
                 "from panda_tpu_torch.runtime import api, manager\n"
-                "from panda_tpu_torch.ops import _ext, msm, ntt\n"
+                "from panda_tpu_torch.ops import _ext, msm, ntt, reduce\n"
+                "from panda_tpu_torch.curves import point\n"
+                "from panda_tpu_torch.interop import native\n"
+                "from panda_tpu_torch.utils import trace\n"
                 "from panda_tpu_torch.reference import curve_ref, ntt_ref\n"
                 "from panda_tpu_torch.tools import occupancy_sweep, "
                 "profile_gather4\n"

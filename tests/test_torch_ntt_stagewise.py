@@ -6,14 +6,16 @@ versions, on the CPU, against the JAX package and the big-integer oracle.
   package's pure-Python ``ntt_oracle`` for BN254 Fr and BLS12-377 Fr, with
   a batch dimension.
 * ``run_ntt``'s dispatch for each ``PANDA_NTT_IMPL``: which engine runs at
-  log_n 4, 9 and 10, and the same bytes from every engine.
+  log_n 4, 9 and 10, and the same bytes from every engine; a zero root
+  takes the stagewise engine under every impl, in both packages (the
+  byte API's ``ntt_v1`` at 2^10, BN254).
 * ``fmul``, the DFT pass and ``small_ntt_batch`` for BLS12-381 Fr against
   the JAX package's Pallas kernels in interpret mode.
 
 The two packages use different Montgomery radices, so arrays go across
 with ``mont.from_jax_limbs`` / ``to_jax_limbs`` (canonical on both sides).
-Two JAX compiles (``ntt_jitted`` forward and inverse) and three interpret
-runs in all.
+Three JAX compiles (``ntt_jitted`` forward and inverse, the BN254 byte
+API's stagewise 2^10 forward) and three interpret runs in all.
 """
 
 import random
@@ -33,11 +35,15 @@ from panda_tpu.ops import ntt_mxu as jntt_mxu
 from panda_tpu.ops import ntt_pallas as jntt_pallas
 from panda_tpu.ops import point_pallas
 from panda_tpu.reference import ntt_ref as jntt_ref
+from panda_tpu.runtime import api as japi
+from panda_tpu.runtime import manager as jmanager
+from panda_tpu_torch import InitUnitType, PandaManager
 from panda_tpu_torch.fields import mont
 from panda_tpu_torch.fields.config import (BLS12_377_FR, BLS12_381_FR,
                                            BN254_FR)
 from panda_tpu_torch.ops import fmul, ntt_fused, ntt_pallas
 from panda_tpu_torch.ops import ntt as ntt_ops
+from panda_tpu_torch.runtime import api
 
 FR = BLS12_381_FR
 R = FR.modulus
@@ -152,6 +158,26 @@ def test_run_ntt_dispatch(monkeypatch, log_n):
     w = FR.root_of_unity(log_n)
     vals = [FR.from_wire_int(v) for v in raw]
     assert _plain(FR, outs["jnp"][0]) == jntt_ref.ntt_oracle(JFR, vals, w)
+
+
+@pytest.mark.parametrize("impl", ["auto", "mxu", "pallas"])
+def test_zero_root_takes_the_stagewise_engine(impl, monkeypatch):
+    """ntt_v1 with a zero root at 2^10 (BN254, words up to 2^256 - 1)
+    gives the JAX package's bytes under ``impl`` and under jnp: both
+    packages run the stagewise engine for it (the four-step and radix-2
+    engines would compute another function)."""
+    log_n, zero = 10, bytes(32)
+    rng = random.Random(10)
+    data = b"".join(rng.randrange(1 << 256).to_bytes(32, "little")
+                    for _ in range(1 << log_n))
+    gm = PandaManager.init_all(0, InitUnitType.NTT, device="cpu")
+    jgm = jmanager.PandaManager.init_all(0, jmanager.InitUnitType.NTT)
+    outs = {}
+    for name in (impl, "jnp"):
+        monkeypatch.setenv("PANDA_NTT_IMPL", name)
+        outs[name] = api.ntt_v1(gm, data, log_n, zero)
+        assert outs[name] == japi.ntt_v1(jgm, data, log_n, zero), name
+    assert outs[impl] == outs["jnp"]
 
 
 def test_bls12_381_fmul_matches_pallas_interpret():
