@@ -15,16 +15,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    path's shapes: the six MSM kernels at n = 2^16 points (c = 13, W = 20,
    D = 4096) and at n = 2^20 (c = 16, W = 16, D = 32768) for BN254, and
    for BLS12-377 and BLS12-381 (12-word coordinates, c from the scalar
-   field's bits, the same geometry) at 2^16 and, for all but the point
-   ops, at 2^20 (where phase A is also timed with its indices cut below
-   n / 8, the bases' table in L2, a measurement only): exact equality for
+   field's bits, the same geometry) at 2^16 and 2^20 (where phase A is
+   also timed with its indices cut below n / 8, the bases' table in L2, a
+   measurement only): exact equality for
    the digits, the histogram and phase A (keys, tails, and emissions where
    a run ended; its bucket tables point-equal), point equality for the
    bucket assembly (buckets.cu's two launches against the plain gathers,
    scan and add, on a draw from 2^16 pool scalars and on the digits of 8
    pool scalars, whose buckets span hundreds of lanes, each launch timed
-   on its own), the point ops and the weighted reduction (wscan's two
-   launches against the plain decomposition, timed level by level); fmul
+   on its own), the point ops on the bucket tables' shape (padd, pmadd,
+   pdbl with k = 1 and k = c, each timed against its bound) and the
+   weighted reduction (wscan's two launches against the plain
+   decomposition, timed level by level); fmul
    at (8, 2^20), the DFT at K = 32, nb = 2^15 (the
    four-step 2^20 NTT's passes), forward and with the inverse's scale and
    the canonical pass, and at K = 4, nb = 2^20 (the 2^22 NTT's leaf), and
@@ -54,16 +56,18 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    slice, api.msm_bn254_with_cached_bases at n = 2^16 and 2^20 with cached
    bases, every call held to the pool-aggregated big-integer oracle, host
    wall time of 20 calls (point_ops must not launch on an MSM path up to
-   2^20 points); the point API (msm.horner: curves.point.dbl / add,
-   kernel point_ops) over the 2^16 call's window sums on the card, held to
-   the host's Horner and the oracle; the BLS MSMs, each curve counted on
+   2^20 points); the point API (msm.horner: point_kernels.pdbl with
+   k = c and curves.point.add, kernel point_ops, 2W launches) over the
+   2^16 call's window sums on the card, held to the host's Horner and the
+   oracle; the BLS MSMs, each curve counted on
    its own, after a check that the bases ingest on the card equals the
    CPU's for 48-byte coordinates: api.msm_bls12_377 / api.msm_bls12_381
    (bases bytes in every call) and api.msm_with_cached_bases at 2^16 and
    2^20, 5 timed calls at 2^16, 10 (alias) and 20 (cached) at 2^20, every
    blob equal to the oracle's; the array-level msm.msm (window sums, then
    msm.horner on the card) at 2^16 and 2^20 (BN254) and 2^20
-   (BLS12-381), equal to the oracle, with W (c + 1) point_ops launches;
+   (BLS12-381), equal to the oracle, with 2W point_ops launches (and
+   chunks - 1 more above 2^20);
    fold_sum, total_sum and scalar_mul (a full-width scalar) on 2^16 points
    on the card, equal to the host's big integers; the MSM above 2^20:
    api.msm_with_cached_bases (BN254 through its alias) at 2^22 and 2^24
@@ -112,9 +116,10 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    BLS12-377 and BLS12-381 MSM 2^20, NTT 2^20 and 2^22 with each engine),
    and each kernel's launches and device ms in that call, from
    torch.profiler (a 2^20 MSM call launches hist once and point_ops never,
-   a 2^24 call exactly the chunked path's launches); each kernel of a
-   2^20 call ranked by its device ms less its launches' bounds, each at
-   its own shape.
+   a 2^24 call exactly the chunked path's launches, whose digits and padd
+   launches are set beside their bounds); each kernel of a 2^20 call
+   ranked by its device ms less its launches' bounds, each at its own
+   shape.
 
 The second-to-last line is a JSON object with one entry per kernel (the
 five curve-templated MSM kernels with a record for each curve, the three
@@ -136,6 +141,10 @@ import sys
 import time
 
 import numpy as np
+
+from panda_tpu_torch.tools.bounds import (IMAD_PER_S, INT8_OPS_PER_S,
+                                         MONT_MUL_IMADS, bound,
+                                         cios_imads)
 
 
 def log(msg: str) -> None:
@@ -248,7 +257,7 @@ class DeviceTimes:
     RETRIES = 2
 
     def __init__(self):
-        self.jobs, self.sums = [], []
+        self.jobs, self.sums, self.copies = [], [], []
 
     def add(self, fn, reps: int, names, out: dict) -> None:
         """Queue ``reps`` calls of ``fn``, one launch of ``names`` each."""
@@ -263,6 +272,10 @@ class DeviceTimes:
         for fn, row in zip(parts, rows):
             self.add(fn, reps, names, row)
         self.sums.append((out, rows))
+
+    def copy(self, src: dict, out: dict) -> None:
+        """Fill ``out``'s "ms" and "recorded" from ``src``'s batch."""
+        self.copies.append((src, out))
 
     def take(self) -> None:
         def batch(fn, reps):
@@ -304,7 +317,9 @@ class DeviceTimes:
             out["ms"] = sum(r["ms"] for r in rows)
             out["parts_ms"] = [r["ms"] for r in rows]
             out["recorded"] = " + ".join(r["recorded"] for r in rows)
-        self.jobs, self.sums = [], []
+        for src, out in self.copies:
+            out["ms"], out["recorded"] = src["ms"], src["recorded"]
+        self.jobs, self.sums, self.copies = [], [], []
 
 
 def word_err(a, b) -> int:
@@ -312,32 +327,6 @@ def word_err(a, b) -> int:
     import torch
     u = lambda t: t.to(torch.int64) & 0xFFFFFFFF
     return int((u(a) - u(b)).abs().max().item()) if a.numel() else 0
-
-
-# Peak rates of one H100 SXM at its full 700 W limit.  Memory and int8
-# tensor cores: NVIDIA's H100 data sheet.  32-bit
-# integer multiply-add: 64 per SM per clock (Hopper architecture white
-# paper) x 132 SMs x 1.98 GHz boost; a CIOS multiply over N words is
-# 4 N^2 + N of them (N x (2N + 1 + 2N): a b_i's lo and hi halves, m, m p's
-# lo and hi halves), 264 at N = 8 and 588 at N = 12.
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-IMAD_PER_S = 64 * 132 * 1.98e9
-
-
-def cios_imads(words: int) -> int:
-    return 4 * words * words + words
-
-
-MONT_MUL_IMADS = cios_imads(8)
-
-
-def bound(nbytes: float, ops: float, rate: float) -> dict:
-    """The least time the card could take: the larger of the bytes over the
-    memory rate and the operations over their peak rate."""
-    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
-    return {"bound_ms": max(b_ms, o_ms),
-            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
 
 
 _POOLS: dict = {}
@@ -396,14 +385,12 @@ def aggregate(pidx, sidx, words, r: int, points: int) -> list:
 
 
 def kernel_checks(curve, n: int, device, timer: DeviceTimes,
-                  plain_times: bool = True,
-                  through_phase_a: bool = False) -> dict:
+                  plain_times: bool = True) -> dict:
     """Phase 3: each MSM kernel of ``curve`` against its plain version at
-    the main-path shapes for n points (with ``through_phase_a``, digits,
-    hist, phase A, the bucket assembly and the weighted reduction only, and
-    the point ops' bound at these shapes without a launch).  The bucket
-    assembly runs on two inputs: these digits and those of 8 pool scalars
-    ("long_runs").  Returns {kernel: {max_abs_err,
+    the main-path shapes for n points.  The bucket assembly runs on two
+    inputs: these digits and those of 8 pool scalars ("long_runs"); the
+    point ops (padd, pmadd, pdbl with k = 1 and k = c) on the bucket
+    tables' shape.  Returns {kernel: {max_abs_err,
     batch_ms (CUDA events around a batch), plain_ms (None unless
     ``plain_times``), bound_ms, bound_by, library_ms}}; ``timer`` fills in
     "ms", the device ms a launch (for wscan, the sum of its levels'), when
@@ -598,42 +585,50 @@ def kernel_checks(curve, n: int, device, timer: DeviceTimes,
                  KERNEL_NAMES["wscan"], levels),
            plain_ms(lambda: reduce.weighted_window_sum_plain(curve, kb), 1),
            bool(cp.eq(curve, kr, pr).all()), wscan_bound)
-    # bound of the point ops: padd on the bucket tables, (L, W, D): 6 + 3
-    # coordinates of fe bytes and 12 multiplies an element
-    padd_bound = bound(9 * fe * N, imad(12 * N), IMAD_PER_S)
-    if through_phase_a:
-        res["point_ops"] = dict(padd_bound)
-        log(f"{tag} point ops: bound only (no launch at this size), padd on "
-            f"{N} elements {padd_bound}")
-        return res
-
     # 5. point ops on the bucket tables' shape (L, W, D) (where the bucket
-    #    assembly's final add ran before buckets.cu): an add, a mixed add
-    #    of bases, a doubling
+    #    assembly's final add ran before buckets.cu, and the chunks' tables
+    #    are summed above 2^20): an add, a mixed add of bases, a doubling
+    #    and c doublings in one launch (the device Horner's window)
     q = ProjPoint(*(a.flip(-1).contiguous() for a in kb))
     idx = torch.arange(W * D, device=device).reshape(W, D) % px.shape[1]
     qa = AffinePoint(px[:, idx], py[:, idx])
     # bounds: (elements in + out) x fe bytes and the multiplies per element:
-    # padd 6 + 3 words, 12M (padd_bound); pmadd 5 + 3, 11M; pdbl 3 + 3, 8M
-    # (6M + 2S)
-    errs, oks, kms, pms, bnds = [], [], [], [], []
-    for kf, pf, args, fes, muls, kname in (
-            (point_kernels.padd, cp.add_plain, (kb, q), 9, 12, "padd_kernel"),
-            (point_kernels.pmadd, cp.madd_plain, (kb, qa), 8, 11,
-             "pmadd_kernel"),
-            (point_kernels.pdbl, cp.dbl_plain, (kb,), 6, 8, "pdbl_kernel")):
+    # padd 6 + 3 words, 12M; pmadd 5 + 3, 11M; pdbl 3 + 3, 8M (6M + 2S) a
+    # doubling
+    variants = {}
+    for op, kf, pf, args, fes, muls in (
+            ("padd", point_kernels.padd, cp.add_plain, (kb, q), 9, 12),
+            ("pmadd", point_kernels.pmadd, cp.madd_plain, (kb, qa), 8, 11),
+            ("pdbl", point_kernels.pdbl, point_kernels.pdbl_plain, (kb,), 6,
+             8),
+            ("pdbl_c", lambda cv, p: point_kernels.pdbl(cv, p, c),
+             lambda cv, p: point_kernels.pdbl_plain(cv, p, c), (kb,), 6,
+             8 * c)):
         kr, pr = kf(curve, *args), pf(curve, *args)
-        oks.append(bool(cp.eq(curve, kr, pr).all()))
-        errs.append(max(word_err(a, b) for a, b in zip(kr, pr)))
-        kms.append(timed(lambda kf=kf, args=args: kf(curve, *args), 20,
-                         (kname,)))
-        pms.append(plain_ms(lambda: pf(curve, *args), 2))
-        bnds.append(bound(fes * fe * N, imad(muls * N), IMAD_PER_S))
-    log(f"{tag} point_ops padd/pmadd/pdbl on {N} elements: batch ms "
-        f"{[k['batch_ms'] for k in kms]}, plain ms {pms}, bounds {bnds}")
-    res["point_ops_variants"] = {"kernel_ms": kms, "plain_ms": pms,
-                                 "bounds": bnds}
-    record("point_ops", max(errs), kms[0], pms[0], all(oks), bnds[0])
+        kname = f"{op.split('_')[0]}_kernel"
+        v = timed(lambda kf=kf, args=args: kf(curve, *args), 20, (kname,))
+        v.update(bound(fes * fe * N, imad(muls * N), IMAD_PER_S))
+        v.update({"point_equal": bool(cp.eq(curve, kr, pr).all()),
+                  "max_abs_err": max(word_err(a, b) for a, b in zip(kr, pr)),
+                  "plain_ms": plain_ms(lambda pf=pf, args=args: pf(
+                      curve, *args), 2 if op != "pdbl_c" else 1),
+                  "elements": N, "k": c if op == "pdbl_c" else None})
+        variants[op] = v
+    log(f"{tag} point_ops on {N} elements (c = {c}): " + "; ".join(
+        f"{op} batch {v['batch_ms']:.4f} ms, plain {v['plain_ms']} ms, bound "
+        f"{v['bound_ms']:.4f} ({v['bound_by']}), max_abs_err "
+        f"{v['max_abs_err']}" for op, v in variants.items()))
+    res["point_ops_variants"] = variants
+    bad = [op for op, v in variants.items() if not v["point_equal"]]
+    if bad:
+        raise AssertionError(f"point_ops {bad} ({curve.name}, {N} elements): "
+                             "kernel disagrees with plain")
+    # the library's record: padd's times and bound, every op's largest error
+    p, summary = variants["padd"], {"batch_ms": variants["padd"]["batch_ms"]}
+    timer.copy(p, summary)
+    record("point_ops", max(v["max_abs_err"] for v in variants.values()),
+           summary, p["plain_ms"], True,
+           {k: p[k] for k in ("bound_ms", "bound_by")})
     return res
 
 
@@ -1131,11 +1126,12 @@ def window_sums(sl: dict):
 
 
 def point_api_path(sl: dict, sums, c: int) -> dict:
-    """The point API on the card (curves.point.dbl / add, kernel point_ops,
-    which the MSM path runs only to sum chunks): msm.horner over the window
-    sums ``sums`` of a slice's inputs, c doublings and one add a window,
-    held to msm.host_horner on the same sums and to the oracle's blob;
-    host wall time and launches."""
+    """The point API on the card (point_kernels.pdbl / curves.point.add,
+    kernel point_ops, which the MSM path runs only to sum chunks):
+    msm.horner over the window sums ``sums`` of a slice's inputs, c
+    doublings in one launch and one add a window (2W launches), held to
+    msm.host_horner on the same sums and to the oracle's blob; host wall
+    time and launches."""
     import torch
     from panda_tpu_torch.ops import _ext, msm
     gm, curve, log_n = sl["gm"], sl["curve"], sl["log_n"]
@@ -1151,6 +1147,9 @@ def point_api_path(sl: dict, sums, c: int) -> dict:
         raise AssertionError(f"point API Horner ({curve.name} 2^{log_n}): "
                              "result != host Horner / oracle")
     launched = _ext.launches["point_ops"] - before
+    if launched != 2 * W:
+        raise AssertionError(f"point API Horner ({curve.name} 2^{log_n}): "
+                             f"{launched} point_ops launches, want {2 * W}")
     log(f"[point API {curve.name} 2^{log_n}] msm.horner over {W} window sums "
         f"on the card: {launched} point_ops launches, {ms:.3f} ms (host "
         "clock, the launches paced by the host); equal to host Horner and "
@@ -1194,7 +1193,7 @@ def array_msm_path(sl: dict, card: str) -> dict:
         raise AssertionError(f"msm.msm ({curve.name} 2^{log_n}) != oracle")
     c = msm.window_bits(log_n, bits=curve.fr.bits)
     W = msm.signed_window_count(curve.fr.bits, c)
-    if launched["point_ops"] != W * (c + 1) + \
+    if launched["point_ops"] != 2 * W + \
             chunked_launches(curve, sl["n"], 1)["point_ops"]:
         raise AssertionError(f"msm.msm ({curve.name} 2^{log_n}): "
                              f"{launched['point_ops']} point_ops launches")
@@ -1966,8 +1965,10 @@ PROBE_KERNELS = ("dg3",)
 
 
 # Registers a thread of each BN254 kernel entry (ptxas -v, sm_90a; no
-# stack, no spills): digits and the point ops as before the MSM kernels
-# were templated on the curve; phase A and wscan as redesigned for the H100
+# stack, no spills): digits as before the MSM kernels were templated on the
+# curve; the point ops as redesigned for the H100 (mont_mul_wide products;
+# padd and pdbl at launch bounds 128 x 4, pmadd with none); phase A and
+# wscan as redesigned for the H100
 # (phase A's cp.async ring at launch bounds 128 x 4; the two-level
 # weighted reduction at 128 x 2, without the overlapped scaling that the
 # 12-word curves keep, where it was 128 registers a thread as one column a
@@ -1975,8 +1976,8 @@ PROBE_KERNELS = ("dg3",)
 # digit); the bucket assembly's tails launch at 128 x 2 and its fill.
 BN254_REGISTERS = {"digits_kernel": 32, "hist_kernel": 29,
                    "phase_a_kernel": 128, "buckets_tails_kernel": 202,
-                   "buckets_fill_kernel": 40, "padd_kernel": 96,
-                   "pmadd_kernel": 96, "pdbl_kernel": 64,
+                   "buckets_fill_kernel": 40, "padd_kernel": 128,
+                   "pmadd_kernel": 128, "pdbl_kernel": 128,
                    "wscan_kernel": 253}
 # The same for the NTT kernels' BN254 Fr and BLS12-377 Fr instantiations:
 # fmul and the DFT from before they took BLS12-381 Fr; small_ntt as
@@ -2093,6 +2094,36 @@ def gap_ranking(busy: list, call_bounds: dict) -> list:
     return rows
 
 
+def top_of_range(busy: list, res20: dict) -> dict:
+    """digits and padd in the profiled BN254 2^24 call (phase 6): device ms
+    a launch (the call's records over its launches) beside the bound of a
+    launch, digits' at 2^24 scalars (their words read, W digits of 5 bytes
+    written, one product a scalar) and padd's at its (8, 16, 32768) tables
+    (res20's, the same shape)."""
+    from panda_tpu_torch.ops import msm
+    from panda_tpu_torch.curves.config import BN254
+    n = 1 << 24
+    W = msm.signed_window_count(BN254.fr.bits, msm.window_bits(
+        24, bits=BN254.fr.bits))
+    pk = next(b for b in busy if b["label"] == "MSM 2^24")["per_kernel"]
+    bounds = {"digits": bound(n * 32 + W * n * 5, n * MONT_MUL_IMADS,
+                              IMAD_PER_S),
+              "point_ops": {k: res20["point_ops"][k]
+                            for k in ("bound_ms", "bound_by")}}
+    out = {}
+    for k, b in bounds.items():
+        v = pk[k]
+        ms = v["device_ms"] / v["recorded"] if v["recorded"] else None
+        out[k] = {"launches": v["launches"], "recorded": v["recorded"],
+                  "ms": ms, **b,
+                  "share_of_bound": b["bound_ms"] / ms if ms else None}
+    log("[2^24] BN254 profiled call, device ms a launch (bound, share): " +
+        "; ".join(f"{k} {v['launches']} x {v['ms']} ({v['bound_ms']:.4f} "
+                  f"{v['bound_by']}, {v['share_of_bound']})"
+                  for k, v in out.items()))
+    return out
+
+
 def counted(kernels, run, absent=()):
     """Run one main path with every launch counter set to 0 just before it;
     fail unless each of ``kernels`` launched and none of ``absent`` did.
@@ -2167,8 +2198,7 @@ def main() -> int:
     for cv in bls_curves:
         bls_res[cv.name] = kernel_checks(cv, 1 << 16, device, timer)
         bls_res[f"{cv.name} 2^20"] = kernel_checks(
-            cv, 1 << 20, device, timer, plain_times=False,
-            through_phase_a=True)
+            cv, 1 << 20, device, timer, plain_times=False)
     timer.take()
     res.update(ntt_kernel_checks(fr, 20, device, timer))
     ntt_res = {cv.name: ntt_kernel_checks(cv.fr, 20, device, timer)
@@ -2417,6 +2447,7 @@ def main() -> int:
                                      f"want {want}")
     mark("stage breakdowns and busy shares")
     ranking = gap_ranking(busy, call_bounds)
+    top = top_of_range(busy, res20)
 
     # the curve-templated MSM kernels: each curve's device ms a launch,
     # launches on its path, bound, plain ms and its instantiations' ptxas
@@ -2463,6 +2494,20 @@ def main() -> int:
                f"{v['replaced_point_ops_bound_ms_2_20']:.4f} ms)"
                if "ms_2_20_long_runs" in v else "")
             for c, v in by_curve.items()))
+
+    # the point ops of each curve at both table shapes: device ms a launch
+    # against its bound
+    point_ops_shapes = {
+        f"{cv.name} 2^{log_n}": r["point_ops_variants"]
+        for cv, log_n, r in (
+            (BN254, 16, res), (BN254, 20, res20),
+            *((cv, 16, bls_res[cv.name]) for cv in bls_curves),
+            *((cv, 20, bls_res[f"{cv.name} 2^20"]) for cv in bls_curves))}
+    log("[point_ops] device ms a launch (bound ms, share of the bound): " +
+        "; ".join(f"{key}: " + ", ".join(
+            f"{op} {v['ms']:.4f} ({v['bound_ms']:.4f}, "
+            f"{v['bound_ms'] / v['ms']:.2f})" for op, v in ops.items())
+            for key, ops in point_ops_shapes.items()))
 
     log("[kernels] hist, device ms a launch (2^16 / 2^20, BN254's digits): "
         f"the main path's digits {res['hist'].get('ms')} / "
@@ -2525,7 +2570,9 @@ def main() -> int:
                     "point_helpers": helpers, "big_msm": big_runs,
                     "chunks_vs_groups": chunk_groups, "msm_host": host_runs,
                     "zero_root": zero_root,
-                    "ranking": ranking, "ptxas": usage, "phase_s": phase_s,
+                    "ranking": ranking, "top_of_range": top,
+                    "point_ops_shapes": point_ops_shapes,
+                    "ptxas": usage, "phase_s": phase_s,
                     "card": card}))
     log(f"[done] chip_smoke.py took {time.perf_counter() - t_start:.1f} s "
         "after its imports")

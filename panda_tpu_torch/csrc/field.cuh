@@ -522,7 +522,8 @@ PT_FN void mont_wide_step(uint32_t* ev, uint32_t* od, const fe_t<F::N>& a,
 // 600 (IMAD, IMAD.HI and a carry add each).  Chains of them run at 95-97%
 // of the 16.7 T/s multiply-add peak for BN254 Fr and 82-83% for the BLS
 // scalar fields, against mont_mul's 55-61% (tools/mul_rate.py on an
-// NVIDIA H100 80GB HBM3 at 700 W).  Used by small_ntt.cu only.
+// NVIDIA H100 80GB HBM3 at 700 W).  Used by small_ntt.cu and, through
+// WideProduct, point_ops.cu.
 template <class F>
 PT_FN fe_t<F::N> mont_mul_wide(const fe_t<F::N>& a, const fe_t<F::N>& b) {
   constexpr int N = F::N;
@@ -732,12 +733,29 @@ struct mpts {
   uint32_t *x, *y, *z;
 };
 
-#define PTT_M(a, b) mont_mul<F>(a, b)
+// The product of the point formulas, a policy that pt_add, pt_madd and
+// pt_dbl take as their second template argument: CiosProduct (mont_mul),
+// the default, for phase_a.cu, buckets.cu and wscan.cu; WideProduct
+// (mont_mul_wide, the same words) for point_ops.cu.
+struct CiosProduct {
+  template <class F>
+  static PT_FN fe_t<F::N> mul(const fe_t<F::N>& a, const fe_t<F::N>& b) {
+    return mont_mul<F>(a, b);
+  }
+};
+struct WideProduct {
+  template <class F>
+  static PT_FN fe_t<F::N> mul(const fe_t<F::N>& a, const fe_t<F::N>& b) {
+    return mont_mul_wide<F>(a, b);
+  }
+};
+
+#define PTT_M(a, b) Mul::template mul<F>(a, b)
 #define PTT_A(a, b) add_mod<F>(a, b)
 #define PTT_S(a, b) sub_mod<F>(a, b)
 
 // Complete addition (RCB Algorithm 7, a = 0): 12M + 2*b3.
-template <class C = Bn254>
+template <class C = Bn254, class Mul = CiosProduct>
 PT_FN xyz_t<C::Fp::N> pt_add(const xyz_t<C::Fp::N>& p,
                              const xyz_t<C::Fp::N>& q) {
   using F = typename C::Fp;
@@ -761,7 +779,7 @@ PT_FN xyz_t<C::Fp::N> pt_add(const xyz_t<C::Fp::N>& p,
 }
 
 // Complete mixed addition (RCB Algorithm 8, a = 0): 11M + 2*b3; q affine.
-template <class C = Bn254>
+template <class C = Bn254, class Mul = CiosProduct>
 PT_FN xyz_t<C::Fp::N> pt_madd(const xyz_t<C::Fp::N>& p,
                               const fe_t<C::Fp::N>& qx,
                               const fe_t<C::Fp::N>& qy) {
@@ -785,7 +803,7 @@ PT_FN xyz_t<C::Fp::N> pt_madd(const xyz_t<C::Fp::N>& p,
 }
 
 // Complete doubling (RCB Algorithm 9, a = 0): 6M + 2S + 1*b3.
-template <class C = Bn254>
+template <class C = Bn254, class Mul = CiosProduct>
 PT_FN xyz_t<C::Fp::N> pt_dbl(const xyz_t<C::Fp::N>& p) {
   using F = typename C::Fp;
   using fe = fe_t<F::N>;

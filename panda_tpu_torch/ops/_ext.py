@@ -41,6 +41,8 @@ launches = {name: 0 for name in KERNELS}
 
 _libs: dict = {}
 _fns: dict = {}
+# resident_threads' answers: {(name, symbol, kid, device index): threads}
+_waves: dict = {}
 
 
 def reset_counts() -> None:
@@ -136,12 +138,14 @@ def variant(name: str, defines: tuple):
     saved = _libs.get(name), {k: f for k, f in _fns.items() if k[0] == name}
     for k in saved[1]:
         del _fns[k]
+    _forget_waves(name)
     _libs[name] = lib
     try:
         yield
     finally:
         for k in [k for k in _fns if k[0] == name]:
             del _fns[k]
+        _forget_waves(name)
         _fns.update(saved[1])
         if saved[0] is None:
             del _libs[name]
@@ -184,15 +188,25 @@ def resident_threads(name: str, symbol: str, kid: int,
     """Threads of one full wave of kernel library ``name``'s kernel ``kid``
     (a curve or field id; for hist, its bin count) on ``device``: the
     device's SMs times the blocks an SM that the build's registers and
-    shared memory allow, as its function ``symbol`` reports them."""
-    f = _fn(name, symbol, [I32, ctypes.POINTER(ctypes.c_int)])
-    out = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = f(kid, ctypes.byref(out))
-    _check(name, symbol, rc)
-    if out.value <= 0:
-        raise RuntimeError(f"{symbol}: no block of the kernel fits an SM")
-    return out.value
+    shared memory allow, as its function ``symbol`` reports them (asked
+    once a build and device: a one-point launch's wrapper reads it too)."""
+    key = (name, symbol, kid, device.index if device.index is not None
+           else torch.cuda.current_device())
+    if key not in _waves:
+        f = _fn(name, symbol, [I32, ctypes.POINTER(ctypes.c_int)])
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = f(kid, ctypes.byref(out))
+        _check(name, symbol, rc)
+        if out.value <= 0:
+            raise RuntimeError(f"{symbol}: no block of the kernel fits an SM")
+        _waves[key] = out.value
+    return _waves[key]
+
+
+def _forget_waves(name: str) -> None:
+    for k in [k for k in _waves if k[0] == name]:
+        del _waves[k]
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -15,7 +15,8 @@ Counterpart of ``panda_tpu/ops/msm.py`` with the same decomposition:
    segmented reduction of the tails, then a thread a bucket);
 5. the weighted reduction sum_d d B_d per window (``csrc/wscan.cu``);
 6. Horner across windows on the host, in big integers (the byte API), or
-   on the device with the point kernels (:func:`horner`, :func:`msm`).
+   on the device with the point kernels (:func:`horner`, :func:`msm`: a
+   window's c doublings in one ``pdbl`` launch, then one ``padd``).
 
 Above ``chunk_n`` points (:data:`CHUNK_N`, 2^20 unless
 ``PANDA_MSM_CHUNK_LOG`` says otherwise) the points run in chunks, as the
@@ -42,7 +43,7 @@ from . import _ext
 from ._ext import I32, I64, P
 from . import digits as digits_ops
 from . import hist as hist_ops
-from . import phase_a
+from . import phase_a, point_kernels
 from . import reduce as red
 
 # Points a chunk: above it window_sums runs the points in chunks of this
@@ -404,11 +405,11 @@ def host_horner(curve: CurveSpec, sums: ProjPoint, c: int):
 def horner(curve: CurveSpec, sums: ProjPoint, c: int) -> ProjPoint:
     """Combine (L, W, *batch) window sums most significant window first, c
     doublings and one complete add a window, on the sums' device (the
-    point_ops kernel on the card): sum_w 2^(c w) G_w as (L, *batch)."""
+    point_ops kernel on the card, 2W launches: a window's c doublings are
+    one pdbl launch, then one padd): sum_w 2^(c w) G_w as (L, *batch)."""
     acc = cp.identity(curve, tuple(sums.x.shape[2:]), sums.x.device)
     for w in reversed(range(sums.x.shape[1])):
-        for _ in range(c):
-            acc = cp.dbl(curve, acc)
+        acc = point_kernels.pdbl(curve, acc, c)
         acc = cp.add(curve, acc, ProjPoint(*(a[:, w] for a in sums)))
     return acc
 

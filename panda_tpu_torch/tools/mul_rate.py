@@ -19,11 +19,12 @@ import torch
 
 from ..ops import _ext
 from ..ops._ext import I32, P
+from .bounds import IMAD_PER_S, MONT_MUL_IMADS
 
 THREADS = 256
 ITERS = 1024
 ILP = 2                      # csrc/mul_rate.cu's kMulRateIlp
-PEAK_PRODUCTS_PER_S = 64 * 132 * 1.98e9 / 264
+PEAK_PRODUCTS_PER_S = IMAD_PER_S / MONT_MUL_IMADS
 
 
 def main(device=None) -> list:

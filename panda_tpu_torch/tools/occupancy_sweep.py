@@ -1,31 +1,37 @@
 """Builds of MSM phase A, of the weighted reduction, of the bucket
-assembly, of the radix-2 NTT pass and of dg3, built and timed on the card.
+assembly, of the point ops, of the radix-2 NTT pass and of dg3, built and
+timed on the card.
 
     python -m panda_tpu_torch.tools.occupancy_sweep \
-        [phase_a|wscan|buckets|small_ntt|dg3 ...]
+        [phase_a|wscan|buckets|point_ops|small_ntt|dg3 ...]
 
 Builds ``csrc/phase_a.cu``, ``csrc/wscan.cu``, ``csrc/buckets.cu``,
-``csrc/small_ntt.cu`` and ``csrc/dg3.cu`` (or those named) with other
-``-D`` flags (:data:`BUILDS`: the blocks an SM that the launch bounds ask
-for, phase A's ring depth, the word counts for which the weighted reduction
-overlaps its scaling with its tree; small_ntt's elements a thread r, its
-threads a block (the columns a tile, T r / K) and blocks an SM; dg3's
-words a slice (the columns or g a slice), narrowest column tile and ring
-depth),
+``csrc/point_ops.cu``, ``csrc/small_ntt.cu`` and ``csrc/dg3.cu`` (or those
+named) with other ``-D`` flags (:data:`BUILDS`: the blocks an SM that the
+launch bounds ask for, phase A's ring depth, the word counts for which the
+weighted reduction overlaps its scaling with its tree; small_ntt's elements a
+thread r, its threads a block (the columns a tile, T r / K) and blocks an
+SM; dg3's words a slice (the columns or g a slice), narrowest column tile
+and ring depth),
 prints each build's registers, stack and spills from its ``ptxas -v``
 report, and times each build with CUDA events over a few calls, with the
 geometry each build's own occupancy gives (``phase_a.resident_threads``,
 ``reduce.wscan_threads``, ``msm.buckets_threads``,
-``ntt_pallas.small_ntt_threads``, ``profile_gather4.dg3_threads``).  The
+``point_kernels.point_ops_threads``, ``ntt_pallas.small_ntt_threads``,
+``profile_gather4.dg3_threads``).  The
 MSM kernels at the MSM's 2^16 and 2^20 shapes for each curve, on 256 pool
 scalars (a few hundred distinct digits a window); the bucket assembly
 also on a uniform draw of scalars below r (near-uniform digits, as a
-prover's scalars give), both on the default phase A's output.  small_ntt
+prover's scalars give), both on the default phase A's output.  The point
+ops (padd, pmadd, pdbl and pdbl with k = c) on the MSM's bucket-table
+shape (L, W, D) at 2^16 and 2^20 points for each curve, device ms a launch
+beside its bound.  small_ntt
 at the radix-2 2^20 and 2^22 NTTs' passes, each in the layout the
 recursion hands it, for each scalar field, dg3 at the gather probe's four
 depths.  Every build's bucket
 tables and window sums must equal the default build's after affine
-normalisation, every small_ntt and dg3 build's words the plain version's.
+normalisation, every point_ops, small_ntt and dg3 build's words the plain
+version's.
 The first build of each kernel is the default.  Raises without a GPU.
 """
 
@@ -42,8 +48,9 @@ import torch
 from ..curves import point as cp
 from ..curves.config import BLS12_377, BLS12_381, BN254
 from ..fields import mont
-from ..ops import _ext, msm, ntt_pallas, phase_a, reduce
+from ..ops import _ext, msm, ntt_pallas, phase_a, point_kernels, reduce
 from ..reference import curve_ref
+from .bounds import IMAD_PER_S, bound, cios_imads
 
 BLOCK = 128
 # (kernel, nvcc defines), the default build of each kernel first
@@ -59,6 +66,14 @@ BUILDS = (
     ("wscan", ("-DPTT_WSCAN_OVERLAP_WORDS=13",)),    # overlap for none
     ("buckets", ()),
     ("buckets", ("-DPTT_BUCKETS_BLOCKS_8=4", "-DPTT_BUCKETS_BLOCKS_12=3")),
+    ("point_ops", ()),
+    ("point_ops", ("-DPTT_PMADD_BLOCKS_8=4", "-DPTT_POINT_BLOCKS_12=3",
+                   "-DPTT_PMADD_BLOCKS_12=3")),
+    ("point_ops", ("-DPTT_POINT_BLOCKS_8=5", "-DPTT_PMADD_BLOCKS_8=5")),
+    ("point_ops", ("-DPTT_POINT_BLOCKS_8=6", "-DPTT_PMADD_BLOCKS_8=6",
+                   "-DPTT_POINT_BLOCKS_12=4", "-DPTT_PMADD_BLOCKS_12=4")),
+    ("point_ops", ("-DPTT_POINT_BLOCKS_8=1", "-DPTT_POINT_BLOCKS_12=1",
+                   "-DPTT_PMADD_BLOCKS_12=1")),
     ("small_ntt", ()),
     ("small_ntt", ("-DPTT_SMALL_NTT_R=4", "-DPTT_SMALL_NTT_BLOCKS=4")),
     ("small_ntt", ("-DPTT_SMALL_NTT_R=4", "-DPTT_SMALL_NTT_BLOCKS=3")),
@@ -72,6 +87,8 @@ BUILDS = (
 MSM_KERNELS = ("phase_a", "wscan", "buckets")
 FIELD_STRUCT = {"bn254_fr": "Fr254", "bls12_377_fr": "Fr377",
                 "bls12_381_fr": "Fr381"}
+CURVE_STRUCT = {"bn254": "Bn254", "bls12_377": "Bls12_377",
+                "bls12_381": "Bls12_381"}
 
 
 def _ms(fn, reps: int) -> float:
@@ -149,12 +166,13 @@ def main(device=None, sizes=(16, 20), kernels=None) -> list:
     builds = [b for b in BUILDS if not kernels or b[0] in kernels]
     with ThreadPoolExecutor(len(builds)) as ex:
         list(ex.map(lambda b: _ext._build(*b), builds))
-    rows = _ntt_rows(device, [b for b in builds if b[0] == "small_ntt"]) + \
+    rows = _point_rows(device, [b for b in builds if b[0] == "point_ops"],
+                       sizes) + \
+        _ntt_rows(device, [b for b in builds if b[0] == "small_ntt"]) + \
         _dg3_rows(device, [b for b in builds if b[0] == "dg3"])
     builds = [b for b in builds if b[0] in MSM_KERNELS]
     for curve in (BN254, BLS12_377, BLS12_381) if builds else ():
-        tag = {"bn254": "Bn254", "bls12_377": "Bls12_377",
-               "bls12_381": "Bls12_381"}[curve.name]
+        tag = CURVE_STRUCT[curve.name]
         for log_n in sizes:
             n = 1 << log_n
             px, py, s, su = _inputs(curve, n, device)
@@ -210,6 +228,69 @@ def main(device=None, sizes=(16, 20), kernels=None) -> list:
                        "registers_stack_spills": regs, "ms": ms, **extra}
                 print(json.dumps(row), flush=True)
                 rows.append(row)
+    return rows
+
+
+def _point_rows(device, builds, sizes) -> list:
+    """Each point_ops build on the MSM's bucket-table shape (L, W, D) at
+    2^log_n points (``sizes``) for each curve: padd, pmadd, pdbl and pdbl
+    with k = c, each build's words equal to the plain version's, device ms
+    a launch (torch.profiler, 20 launches) beside the bound (the
+    coordinates read and written once, 12, 11, 8 or 8 c products an
+    element), the blocks an SM of the build's wave and its ptxas rows."""
+    rows = []
+    for curve in (BN254, BLS12_377, BLS12_381) if builds else ():
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        L = mont.n_words(curve.fp)
+        for log_n in sizes:
+            c = msm.window_bits(log_n, bits=curve.fr.bits)
+            W = msm.signed_window_count(curve.fr.bits, c)
+            N = W << (c - 1)
+            px, py, _, _ = _inputs(curve, N, device)
+            shape = (L, W, N // W)
+            p = cp.dbl_plain(curve, cp.from_affine(curve, cp.AffinePoint(
+                px, py)))
+            p = cp.ProjPoint(*(a.reshape(shape) for a in p))
+            q = cp.ProjPoint(*(a.flip(-1).contiguous() for a in p))
+            qa = cp.AffinePoint(*(a.reshape(shape).flip(-1).contiguous()
+                                  for a in (px, py)))
+            ops = (("padd", point_kernels.padd, cp.add_plain, (p, q), 9, 12),
+                   ("pmadd", point_kernels.pmadd, cp.madd_plain, (p, qa), 8,
+                    11),
+                   ("pdbl", point_kernels.pdbl, point_kernels.pdbl_plain,
+                    (p,), 6, 8),
+                   ("pdbl_c", lambda cv, x: point_kernels.pdbl(cv, x, c),
+                    lambda cv, x: point_kernels.pdbl_plain(cv, x, c), (p,),
+                    6, 8 * c))
+            for op, kf, pf, args, fes, muls in ops:
+                want = pf(curve, *args)
+                bnd = bound(fes * 4 * L * N, muls * N * cios_imads(L),
+                            IMAD_PER_S)
+                kname = op.split("_")[0]
+                for name, defines in builds:
+                    with _ext.variant(name, defines):
+                        call = lambda: kf(curve, *args)  # noqa: E731
+                        if not all(torch.equal(a, b) for a, b in
+                                   zip(call(), want)):
+                            raise AssertionError(
+                                f"point_ops {defines} ({curve.name}, {op}, "
+                                f"2^{log_n}): differs from the plain version")
+                        dev_ms = _device_ms(call, 20, f"{kname}_kernel")
+                        wave = point_kernels.point_ops_threads(
+                            curve, kname, device)
+                    regs = [r[1:] for r in _ext.ptxas_rows(name, defines)
+                            if CURVE_STRUCT[curve.name] in r[0]
+                            and f"{kname}_kernel" in r[0]]
+                    row = {"kernel": name, "defines": list(defines),
+                           "curve": curve.name, "log_n": log_n, "op": op,
+                           "elements": N, "k": c if op == "pdbl_c" else 1,
+                           "default": not defines,
+                           "blocks_an_sm": wave / (sms * BLOCK),
+                           "registers_stack_spills": regs,
+                           "device_ms": dev_ms, **bnd,
+                           "share_of_bound": bnd["bound_ms"] / dev_ms}
+                    print(json.dumps(row), flush=True)
+                    rows.append(row)
     return rows
 
 

@@ -138,23 +138,29 @@ void by_curve(int id, A... a) {
   else if (id == 1) Body<Bls12_377>::run(a...);
   else Body<Bls12_381>::run(a...);
 }
+// point_ops.cu's launch on the host: each of `threads` threads one after
+// another.
+template <class Op>
+void point_all(const Op& op, int64_t threads) {
+  for (int64_t t = 0; t < threads; ++t) point_thread(op, t, threads);
+}
 template <class C> struct Padd {
   static void run(In px, In py, In pz, In qx, In qy, In qz, Out rx, Out ry,
-                  Out rz, int64_t n) {
-    for (int64_t i = 0; i < n; ++i)
-      padd_elem<C>(px, py, pz, qx, qy, qz, rx, ry, rz, i, n);
+                  Out rz, int64_t n, int64_t threads) {
+    point_all(PaddOp<C>{{px, py, pz}, {qx, qy, qz}, {rx, ry, rz}, n},
+              threads);
   }
 };
 template <class C> struct Pmadd {
   static void run(In px, In py, In pz, In qx, In qy, Out rx, Out ry, Out rz,
-                  int64_t n) {
-    for (int64_t i = 0; i < n; ++i)
-      pmadd_elem<C>(px, py, pz, qx, qy, rx, ry, rz, i, n);
+                  int64_t n, int64_t threads) {
+    point_all(PmaddOp<C>{{px, py, pz}, qx, qy, {rx, ry, rz}, n}, threads);
   }
 };
 template <class C> struct Pdbl {
-  static void run(In px, In py, In pz, Out rx, Out ry, Out rz, int64_t n) {
-    for (int64_t i = 0; i < n; ++i) pdbl_elem<C>(px, py, pz, rx, ry, rz, i, n);
+  static void run(In px, In py, In pz, Out rx, Out ry, Out rz, int64_t n,
+                  int k, int64_t threads) {
+    point_all(PdblOp<C>{{px, py, pz}, {rx, ry, rz}, n, k}, threads);
   }
 };
 template <class C> struct Digits {
@@ -219,10 +225,11 @@ template <class C> struct Wscan {
 
 template <class F> struct MulWide {
   static void run(In a, In b, Out r, int64_t n) {
+    constexpr int N = F::N;
     for (int64_t i = 0; i < n; ++i) {
-      const fe x = load_fe(a, i, n), y = load_fe(b, i, n);
+      const fe_t<N> x = load_fe<N>(a, i, n), y = load_fe<N>(b, i, n);
       store_fe(r, i, n, mont_mul_wide<F>(x, y));
-      store_fe(r + 8 * n, i, n, mont_mul<F>(x, y));
+      store_fe(r + N * n, i, n, mont_mul<F>(x, y));
     }
   }
 };
@@ -240,21 +247,28 @@ void h_fp(int op, int field, In a, In b, Out r, int64_t n) {
 void h_mul_wide(In a, In b, Out r, int64_t n, int field) {
   by_field<MulWide>(field, a, b, r, n);
 }
+// The same for base field `field` (0 Fp254, 1 Fp377, 2 Fp381): (2 N, n).
+void h_mul_wide_fp(In a, In b, Out r, int64_t n, int field) {
+  if (field == 0) MulWide<Fp254>::run(a, b, r, n);
+  else if (field == 1) MulWide<Fp377>::run(a, b, r, n);
+  else MulWide<Fp381>::run(a, b, r, n);
+}
 void h_reduce_wide_fr381(In a, Out r, int64_t n) {
   for (int64_t i = 0; i < n; ++i)
     store_fe(r, i, n, reduce_wide<Fr381>(load_fe(a, i, n)));
 }
+// point_ops.cu's launchers over `threads` threads.
 void h_padd(In px, In py, In pz, In qx, In qy, In qz, Out rx, Out ry, Out rz,
-            int64_t n, int curve) {
-  by_curve<Padd>(curve, px, py, pz, qx, qy, qz, rx, ry, rz, n);
+            int64_t n, int64_t threads, int curve) {
+  by_curve<Padd>(curve, px, py, pz, qx, qy, qz, rx, ry, rz, n, threads);
 }
 void h_pmadd(In px, In py, In pz, In qx, In qy, Out rx, Out ry, Out rz,
-             int64_t n, int curve) {
-  by_curve<Pmadd>(curve, px, py, pz, qx, qy, rx, ry, rz, n);
+             int64_t n, int64_t threads, int curve) {
+  by_curve<Pmadd>(curve, px, py, pz, qx, qy, rx, ry, rz, n, threads);
 }
-void h_pdbl(In px, In py, In pz, Out rx, Out ry, Out rz, int64_t n,
-            int curve) {
-  by_curve<Pdbl>(curve, px, py, pz, rx, ry, rz, n);
+void h_pdbl(In px, In py, In pz, Out rx, Out ry, Out rz, int64_t n, int k,
+            int64_t threads, int curve) {
+  by_curve<Pdbl>(curve, px, py, pz, rx, ry, rz, n, k, threads);
 }
 void h_digits(In s, Out mags, uint8_t* negs, int64_t n, int c, int W,
               int field) {
@@ -434,7 +448,7 @@ def test_field_ids_match_ntt_fields(name):
     assert set(struct) == set(_ext.NTT_FIELDS) == set(_ext.MSM_FIELDS)
 
 
-@pytest.mark.parametrize("name,launchers", [("digits", 1), ("point_ops", 3),
+@pytest.mark.parametrize("name,launchers", [("digits", 1), ("point_ops", 4),
                                             ("wscan", 1), ("phase_a", 1),
                                             ("buckets", 2)])
 def test_ids_match_msm_curves_and_fields(name, launchers):
@@ -536,23 +550,33 @@ def test_fr381_ops_bit_identical(host, op):
     assert got == want
 
 
+# threads of the host launches: fewer than the elements, so each walks
+# several with its grid stride (7 of them an uneven number), and one each
+POINT_THREADS = (5, 7, 24)
+
+
 def _point_ops_case(host, curve):
+    """point_ops.cu's padd, pmadd and pdbl (one doubling), products through
+    mont_mul_wide, at each of POINT_THREADS."""
     n = 24
     p, q_aff = _points(n, 11, curve)
     q = cp.from_affine(curve, q_aff)
     q = ProjPoint(*(torch.cat([a[:, :2], b[:, 2:3], c[:, 3:]], 1)
                     for a, b, c in zip(p, cp.neg(curve, p), q)))
-    outs = [np.empty_like(_np(p.x)) for _ in range(3)]
     cid = _curve_id(curve)
-    _call(host.h_padd, *map(_np, p), *map(_np, q), *outs, n, cid)
-    for o, e in zip(outs, cp.add_plain(curve, p, q)):
-        np.testing.assert_array_equal(o, _np(e))
-    _call(host.h_pmadd, *map(_np, p), *map(_np, q_aff), *outs, n, cid)
-    for o, e in zip(outs, cp.madd_plain(curve, p, q_aff)):
-        np.testing.assert_array_equal(o, _np(e))
-    _call(host.h_pdbl, *map(_np, p), *outs, n, cid)
-    for o, e in zip(outs, cp.dbl_plain(curve, p)):
-        np.testing.assert_array_equal(o, _np(e))
+    for threads in POINT_THREADS:
+        outs = [np.full_like(_np(p.x), 0x5A5A5A5A) for _ in range(3)]
+        _call(host.h_padd, *map(_np, p), *map(_np, q), *outs, n, threads, cid)
+        for o, e in zip(outs, cp.add_plain(curve, p, q)):
+            np.testing.assert_array_equal(o, _np(e))
+        _call(host.h_pmadd, *map(_np, p), *map(_np, q_aff), *outs, n,
+              threads, cid)
+        for o, e in zip(outs, cp.madd_plain(curve, p, q_aff)):
+            np.testing.assert_array_equal(o, _np(e))
+        _call(host.h_pdbl, *map(_np, p), *outs, n, ("i32", 1), threads,
+              cid)
+        for o, e in zip(outs, cp.dbl_plain(curve, p)):
+            np.testing.assert_array_equal(o, _np(e))
 
 
 def test_point_ops_bit_identical(host):
@@ -563,6 +587,26 @@ def test_point_ops_bit_identical(host):
 def test_point_ops_bit_identical_bls(host, curve):
     """The 12-word instantiations (b3 = 3 and 12)."""
     _point_ops_case(host, curve)
+
+
+@pytest.mark.parametrize("k", [3, 13])
+@pytest.mark.parametrize("curve", [BN254, BLS12_377, BLS12_381],
+                         ids=lambda c: c.name)
+def test_pdbl_k_doublings_bit_identical(host, curve, k):
+    """pdbl with a count: k doublings in registers between one load and one
+    store (the device Horner's c a window), word for word the plain
+    doubling applied k times, the identity included."""
+    n = 9
+    p, _ = _points(n, 13, curve)
+    want = p
+    for _ in range(k):
+        want = cp.dbl_plain(curve, want)
+    for threads in POINT_THREADS[:2]:
+        outs = [np.empty_like(_np(p.x)) for _ in range(3)]
+        _call(host.h_pdbl, *map(_np, p), *outs, n, ("i32", k), threads,
+              _curve_id(curve))
+        for o, e in zip(outs, want):
+            np.testing.assert_array_equal(o, _np(e))
 
 
 def _digits_case(fr, c):
@@ -854,12 +898,16 @@ def test_weighted_scan_bit_identical_bls(host, curve):
     _weighted_scan_case(host, curve)
 
 
-@NTT_FIELDS
+@pytest.mark.parametrize("fr", [BN254_FR, BLS12_377_FR, BLS12_381_FR,
+                                BN254_FP, BLS12_377.fp, BLS12_381.fp],
+                         ids=lambda f: f.name)
 def test_mont_mul_wide_bit_identical(host, fr):
     """field.cuh's mont_mul_wide (the even/odd accumulation that small_ntt
-    multiplies with) gives mont_mul's product word for word on its whole
-    domain's edges and on random values: a and b below 2r (a below r and b
-    any word below 2^256 for BLS12-381 Fr, whose values stay below r)."""
+    and the point_ops formulas multiply with) gives mont_mul's product word
+    for word on its whole domain's edges and on random values: a and b
+    below 2r (a below r and b any word below 2^256 for BLS12-381 Fr, whose
+    values stay below r); for the NTT scalar fields and the curves' 8- and
+    12-word base fields."""
     r = fr.modulus
     canon = mont.canon(fr)
     rng = random.Random(7)
@@ -877,12 +925,19 @@ def test_mont_mul_wide_bit_identical(host, fr):
         [rng.randrange(b_top) for _ in range(3000)] + \
         [b_top - 1 - rng.randrange(1 << 64) for _ in range(500)]
     A, B = _words(fr, a), _words(fr, b)
-    out = np.empty((16, len(a)), np.uint32)
-    _call(host.h_mul_wide, _np(A), _np(B), out, len(a),
-          ("i32", _ext.NTT_FIELDS.index(fr.name)))
-    np.testing.assert_array_equal(out[:8], out[8:])
-    np.testing.assert_array_equal(
-        out[8:].view(np.int32), _np(fmul.fmul_plain(fr, A, B)))
+    L = mont.n_words(fr)
+    out = np.empty((2 * L, len(a)), np.uint32)
+    if fr.name in _ext.NTT_FIELDS:
+        _call(host.h_mul_wide, _np(A), _np(B), out, len(a),
+              ("i32", _ext.NTT_FIELDS.index(fr.name)))
+        plain = fmul.fmul_plain(fr, A, B)
+    else:
+        _call(host.h_mul_wide_fp, _np(A), _np(B), out, len(a),
+              ("i32", ["bn254_fp", "bls12_377_fp", "bls12_381_fp"].index(
+                  fr.name)))
+        plain = mont.mul(fr, A, B)
+    np.testing.assert_array_equal(out[:L], out[L:])
+    np.testing.assert_array_equal(out[L:].view(np.int32), _np(plain))
 
 
 @NTT_FIELDS

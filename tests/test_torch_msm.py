@@ -230,7 +230,7 @@ def test_occupancy_sweep_builds_change_the_source():
             macro = re.fullmatch(r"-D(\w+)=\d+", d).group(1)
             assert f"#ifndef {macro}" in text, d
     assert firsts == {"phase_a": (), "wscan": (), "buckets": (),
-                      "small_ntt": (), "dg3": ()}
+                      "point_ops": (), "small_ntt": (), "dg3": ()}
     with pytest.raises(RuntimeError):
         occupancy_sweep.main()
 
@@ -314,8 +314,8 @@ def test_package_imports_without_jax():
                 "from panda_tpu_torch.interop import native\n"
                 "from panda_tpu_torch.utils import trace\n"
                 "from panda_tpu_torch.reference import curve_ref, ntt_ref\n"
-                "from panda_tpu_torch.tools import occupancy_sweep, "
-                "profile_gather4\n"
+                "from panda_tpu_torch.tools import bounds, mul_rate, "
+                "occupancy_sweep, point_api_times, profile_gather4\n"
                 + FOREIGN], ROOT)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"

@@ -27,7 +27,7 @@ from panda_tpu_torch.curves import point as cp
 from panda_tpu_torch.curves.config import BN254
 from panda_tpu_torch.curves.point import ProjPoint
 from panda_tpu_torch.fields import mont
-from panda_tpu_torch.ops import msm, reduce
+from panda_tpu_torch.ops import msm, point_kernels, reduce
 from panda_tpu_torch.reference import curve_ref
 
 FP, FR = BN254.fp, BN254.fr
@@ -173,3 +173,5 @@ def test_horner_matches_jax(case):
         want.append(acc)
     jwant = jax.jit(lambda s: jmsm.horner(JBN254, s, C))(case["jsums"])
     assert port_affine(got) == jax_affine(jwant) == want
+    with pytest.raises(ValueError):         # Horner's pdbl takes k >= 1
+        point_kernels.pdbl(BN254, got, 0)
