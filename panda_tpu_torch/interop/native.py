@@ -1,11 +1,14 @@
-"""ctypes binding to the native C++ host MSM (``libpanda_host``).
+"""ctypes binding to the native C++ library (``libpanda_host``).
 
 The port's own loader for the JAX package's native library: it compiles
 ``panda_tpu/native/panda_host.cpp`` (read, never edited or built in place)
 with the system ``g++`` into ``build/panda_tpu_torch/`` at the repository
-root, at first use, keyed on a hash of the source and flags.  Only the host
-MSM is bound here.  There is no fallback: when the library cannot be built
-or loaded, :func:`load` raises.
+root, at first use, keyed on a hash of the source and flags.  Bound here:
+the host MSM, and the session API's MSM and NTT with their execution target
+(:class:`NativeSession`; target 1 runs them in the engine worker, which
+``PANDA_WORKER_PYTHON`` names: ``interop/worker_python`` for the port's).
+There is no fallback: when the library cannot be built or loaded,
+:func:`load` raises.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+from ..runtime.errors import PandaError, PandaRuntimeError
 
 _ROOT = Path(__file__).resolve().parents[2]
 SOURCE = _ROOT / "panda_tpu" / "native" / "panda_host.cpp"
@@ -64,6 +69,18 @@ def load():
             ctypes.c_char_p,                   # out (3 * field bytes)
             ctypes.c_int,                      # coordinate type
         ]
+        S, B, N = ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t
+        for name, restype, argtypes in (
+                ("panda_session_create", S, [B]),
+                ("panda_session_destroy", None, [S]),
+                ("panda_session_set_execution_target", ctypes.c_int,
+                 [S, ctypes.c_int]),
+                ("panda_session_engine_warmup", ctypes.c_int, [S]),
+                ("panda_session_msm", ctypes.c_int, [S, B, N, B, N, B]),
+                ("panda_session_ntt", ctypes.c_int,
+                 [S, B, N, ctypes.c_uint, B, ctypes.c_int])):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = restype, argtypes
         _lib = lib
     return _lib
 
@@ -90,3 +107,62 @@ def msm_host(curve, scalars: bytes, bases: bytes,
     if rc != 0:
         raise RuntimeError(f"panda_msm_execute_host failed: {rc}")
     return out.raw
+
+
+def _check(rc: int, what: str) -> None:
+    if rc:
+        raise PandaRuntimeError(PandaError(rc), what)
+
+
+class NativeSession:
+    """A session of the native library's C API for ``curve``: the host
+    pipeline (execution target 0, the default) or the engine worker
+    (target 1: one worker process a session, byte-equal to the port's
+    ``runtime.api`` when it is the port's worker).  A non-zero code raises
+    PandaRuntimeError with that code (the worker's own code, or NOT_READY
+    when the worker died: the next call starts a new one)."""
+
+    def __init__(self, curve):
+        self._lib = load()
+        self._curve = curve
+        self._h = self._lib.panda_session_create(curve.name.encode())
+        if not self._h:
+            raise PandaRuntimeError(PandaError.UNSUPPORTED_CURVE, curve.name)
+
+    def close(self) -> None:
+        """Destroy the session (and stop its worker)."""
+        if self._h:
+            self._lib.panda_session_destroy(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def set_execution_target(self, target: int) -> None:
+        """0 = the in-process host pipeline, 1 = the engine worker."""
+        _check(self._lib.panda_session_set_execution_target(self._h, target),
+               "set_execution_target")
+
+    def engine_warmup(self) -> None:
+        """Start and ping the engine worker now."""
+        _check(self._lib.panda_session_engine_warmup(self._h),
+               "engine warmup")
+
+    def msm(self, scalars: bytes, bases: bytes) -> bytes:
+        out = ctypes.create_string_buffer(3 * self._curve.fp.n_bytes)
+        _check(self._lib.panda_session_msm(self._h, scalars, len(scalars),
+                                           bases, len(bases), out),
+               "session msm")
+        return out.raw
+
+    def ntt(self, data: bytes, log_n: int, omega: bytes | None = None,
+            inverse: bool = False) -> bytes:
+        """Forward (with ``omega``: the given root) or inverse NTT."""
+        buf = ctypes.create_string_buffer(data, len(data))
+        _check(self._lib.panda_session_ntt(self._h, buf, len(data), log_n,
+                                           omega, int(inverse)),
+               "session ntt")
+        return buf.raw

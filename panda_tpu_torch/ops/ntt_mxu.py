@@ -130,8 +130,12 @@ def _transform(plan: MxuNttPlan, level: int, x: torch.Tensor, tables,
 
 
 def apply_ntt(plan: MxuNttPlan, x: torch.Tensor, tables) -> torch.Tensor:
-    """Transform of (W, n) words (any values below 2^256) with the plan's
-    tables; canonical output, so its words are the wire bytes."""
-    W, n = x.shape
-    assert n == 1 << plan.log_n
-    return _transform(plan, 0, x.reshape(W, n, 1), tables, True).reshape(W, n)
+    """Transform along axis 1 of (W, n) or (W, n, batch) words (any values
+    below 2^256) with the plan's tables; canonical output, so its words are
+    the wire bytes."""
+    W, n = x.shape[:2]
+    if n != 1 << plan.log_n or x.dim() > 3:
+        raise ValueError(f"apply_ntt: expected (W, 2^{plan.log_n}[, batch]) "
+                         f"words, got {tuple(x.shape)}")
+    return _transform(plan, 0, x.reshape(W, n, -1), tables,
+                      True).reshape(x.shape)

@@ -31,6 +31,7 @@ from panda_tpu_torch.ops import (_ext, digits, fmul, hist, msm, ntt_fused,
                                  ntt_pallas, phase_a, reduce)
 from panda_tpu_torch.reference import curve_ref
 from panda_tpu_torch.tools import profile_gather4
+from tests.jax_release import release_jax_programs  # noqa: F401
 
 CSRC = _ext.CSRC
 NTT_FIELDS = pytest.mark.parametrize("fr", [BN254_FR, BLS12_377_FR,

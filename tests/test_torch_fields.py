@@ -29,6 +29,7 @@ from panda_tpu_torch.fields import mont
 from panda_tpu_torch.fields.config import BLS12_381_FR, BN254_FP, BN254_FR
 from panda_tpu_torch.reference.field_ref import F
 from panda_tpu_torch.runtime import errors
+from tests.jax_release import release_jax_programs  # noqa: F401
 
 SPECS = [BN254_FP, BN254_FR]
 JAX_SPECS = {s.name: s for s in jfields.ALL_FIELDS}

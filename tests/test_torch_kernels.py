@@ -30,6 +30,7 @@ from panda_tpu_torch.curves.point import AffinePoint, ProjPoint
 from panda_tpu_torch.fields import mont
 from panda_tpu_torch.ops import hist, msm, reduce
 from panda_tpu_torch.reference import curve_ref
+from tests.jax_release import release_jax_programs  # noqa: F401
 
 FP, FR = BN254.fp, BN254.fr            # the port's specs
 JFP, JFR = JBN254.fp, JBN254.fr        # the JAX package's

@@ -10,6 +10,7 @@ from panda_tpu_torch.curves import point as cp
 from panda_tpu_torch.curves.config import BN254
 from panda_tpu_torch.curves.point import ProjPoint
 from panda_tpu_torch.ops import msm
+from tests.jax_release import release_jax_programs  # noqa: F401
 
 
 def test_msm_above_chunk_n_takes_the_chunked_branch(monkeypatch):

@@ -18,6 +18,7 @@ from panda_tpu_torch.reference import curve_ref
 from panda_tpu_torch.runtime import api
 from panda_tpu_torch.runtime.errors import PandaError
 from panda_tpu_torch.runtime.manager import ResultCoordinateType
+from tests.jax_release import release_jax_programs  # noqa: F401
 
 N = 16
 

@@ -32,6 +32,7 @@ from panda_tpu_torch.ops import ntt as ntt_ops
 from panda_tpu_torch.ops import ntt_pallas
 from panda_tpu_torch.reference import ntt_ref
 from panda_tpu_torch.runtime import api
+from tests.jax_release import release_jax_programs  # noqa: F401
 
 FR = BN254.fr
 R = FR.modulus

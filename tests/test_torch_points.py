@@ -29,6 +29,7 @@ from panda_tpu_torch.curves.point import ProjPoint
 from panda_tpu_torch.fields import mont
 from panda_tpu_torch.ops import msm, point_kernels, reduce
 from panda_tpu_torch.reference import curve_ref
+from tests.jax_release import release_jax_programs  # noqa: F401
 
 FP, FR = BN254.fp, BN254.fr
 JFP = JBN254.fp

@@ -10,6 +10,7 @@ from panda_tpu_torch import BN254, InitUnitType, PandaManager
 from panda_tpu_torch.reference import curve_ref
 from panda_tpu_torch.runtime import api
 from panda_tpu_torch.utils import trace
+from tests.jax_release import release_jax_programs  # noqa: F401
 
 
 def test_timer_records_and_prints(capsys, monkeypatch):
