@@ -121,10 +121,17 @@ Phases, each of which raises on failure (the exit code is then non-zero):
    time-sharing one card (no scaling figure); one NCCL rank runs the
    points-sharded MSM and the sharded NTT at 2^20; a block of zero-digit
    windows sums to the identity on the card; entry.dryrun_multichip(4)
-   and (1); the engine worker through libpanda_host.so (execution target
-   1, PANDA_WORKER_PYTHON naming interop/worker_python): an MSM at 2^16
-   and an NTT at 2^12 byte-equal to the byte API, with one more CUDA
-   process in nvidia-smi's compute apps while it lives;
+   and (1); the native caller: panda_tpu_torch.tools.native_engine_check
+   in a process of its own that imports no torch (so holds no CUDA
+   context), as a Rust prover linking the port's libpanda_host.so runs:
+   for BN254 and BLS12-381, the engine target's MSM at 2^16 by cached
+   bases and scalars indices and by cached bases with fresh scalar bytes
+   equal to the pool-aggregated oracle, NTT, INTT and ntt_v1 (w^3) at 2^12
+   equal to ntt_ref, and the host target's set_config(1), device_count()
+   and ntt_host; each worker one more compute app in nvidia-smi while it
+   lives, returning call by call the bytes (by sha256) and launching the
+   kernels that the same call returns and launches in this script's
+   process;
 5. where the time goes: the MSM call (BN254 at 2^16, 2^20 and, 3 calls,
    2^24; BLS12-381 at 2^20) and the 2^20 NTT call of each engine run stage
    by stage with a device synchronise around each stage, median, min and
@@ -143,11 +150,25 @@ five curve-templated MSM kernels with a record for each curve, the three
 NTT kernels with one for each scalar field; the "ms" of buckets and of
 wscan is a call's two launches together); the last line is
 {"ok": true, "device": {...}}.  Inputs come from fixed seeds.
+
+A native caller reaches the port through its own C library,
+panda_tpu_torch/native/panda_host.cpp, which panda_tpu_torch/interop/
+native.py builds with g++ at first use into build/panda_tpu_torch/ and
+leaves as build/panda_tpu_torch/native/libpanda_host.so as well (python3
+-c 'from panda_tpu_torch.interop import native; print(native.build())').
+The Rust crate links it with PANDA_NATIVE_DIR set to that directory (no
+check in this repository builds the crate).  A session with execution target
+1 starts "$PANDA_WORKER_PYTHON -m panda_tpu_torch.interop.worker" (an
+interpreter, default python3) with the repository root on PYTHONPATH;
+PANDA_WORKER_DEVICE=cpu serves on the CPU, as the CPU tests
+(tests/test_torch_native_session.py, tests/test_torch_native_engine.py)
+run it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import random
@@ -267,9 +288,11 @@ class DeviceTimes:
     ``take`` runs every queued batch (each after one warm-up call) in one
     profiler session and fills in the median device ms a launch.  On the
     H100 a session at times records no launch of a whole batch (its first,
-    or one in the middle of a long session), so a batch left without
-    records runs again in a new session, up to ``RETRIES`` times, and the
-    retries are logged; phase 3 takes a group of kernels a session."""
+    or one in the middle of a long session): so each session opens with
+    an extra batch of its first kernel, whose records are not read, and a
+    batch left without records runs again in a new session, up to
+    ``RETRIES`` times, and the retries are logged; phase 3 takes a group
+    of kernels a session."""
 
     RETRIES = 2
 
@@ -303,7 +326,8 @@ class DeviceTimes:
 
         pending = list(enumerate(self.jobs))
         for attempt in range(self.RETRIES + 1):
-            jobs = []
+            fn, reps = pending[0][1][:2]
+            jobs = [("chip_smoke session start", batch(fn, reps))]
             for i, (fn, reps, *_) in pending:
                 jobs += [(f"chip_smoke warm-up {i}", fn),
                          (f"chip_smoke batch {i}", batch(fn, reps))]
@@ -1531,105 +1555,114 @@ def check_sharded(cases, expect, ranks, card: str, world: str) -> list:
     return rows
 
 
-def worker_path(device, card: str) -> dict:
-    """The engine worker through the native library (execution target 1,
-    PANDA_WORKER_PYTHON naming the port's launcher): an MSM at 2^16 and an
-    NTT at 2^12 byte-equal to the byte API on the card, each launching in
-    the worker (its PANDA_WORKER_LAUNCHES file) the kernels the same call
-    launches in this process, and one more process with a CUDA context
-    while the worker lives (nvidia-smi on this machine shows every process
-    as pid 1, so the worker is told by the count of compute apps)."""
-    import tempfile
+NATIVE_CURVES = ("bn254", "bls12_381")
+NATIVE_MSM_KERNELS = ("digits", "hist", "phase_a", "buckets", "wscan")
+NATIVE_NTT_KERNELS = ("fmul", "dft")
+
+
+def native_caller_path(device, card: str) -> dict:
+    """The native caller: ``panda_tpu_torch.tools.native_engine_check`` in
+    a process of its own, which imports no torch (no CUDA context) and
+    reaches the card only through the port's libpanda_host.so and the
+    engine worker it starts (execution target 1), as a Rust prover would.
+    For BN254 and BLS12-381: the MSM at 2^16 by cached bases and scalars
+    indices and by cached bases with fresh scalar bytes equal to the
+    pool-aggregated oracle, NTT, INTT and ntt_v1 (w^3) at 2^12 equal to
+    ntt_ref, and on the host target set_config(1), device_count() and
+    ntt_host.  Every comparison must hold; each worker must add one
+    compute app to nvidia-smi's list while it lives (nvidia-smi on this
+    machine shows every process as pid 1, so the worker is told by the
+    count) and return, call by call, the bytes (by sha256) and launch the
+    kernels that the same call returns and launches in this process."""
     from panda_tpu_torch import PandaManager
-    from panda_tpu_torch.curves.config import BN254
-    from panda_tpu_torch.interop import native
+    from panda_tpu_torch.curves.config import CURVES
     from panda_tpu_torch.ops import _ext
     from panda_tpu_torch.runtime import api
+    from panda_tpu_torch.tools import native_engine_check as nec
 
-    def compute_apps() -> list:
-        return subprocess.run(
-            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    os.environ["PANDA_WORKER_PYTHON"] = os.path.join(
-        root, "panda_tpu_torch", "interop", "worker_python")
-    os.environ["PANDA_TORCH_PYTHON"] = sys.executable
-    os.environ.pop("PANDA_WORKER_DEVICE", None)
-    bases, scalars, _ = pool_inputs(BN254, 1 << 16, SHARDED_SEED,
-                                    oracle=False)
-    data = ntt_case(BN254.fr, 12, SHARDED_SEED)["data"]
-    gm = PandaManager.new(0, BN254, device=device)
-    want, here = {}, {}
-    for name, call in (("msm", lambda: api.msm(gm, scalars, bases)),
-                       ("ntt", lambda: api.ntt(gm, data, 12))):
+    def count(fn):
         _ext.reset_counts()
-        want[name] = call()
-        here[name] = dict(_ext.launches)
-    want_msm, want_ntt = want["msm"], want["ntt"]
-    before = compute_apps()
-    tmp = tempfile.TemporaryDirectory()
-    counts_file = os.path.join(tmp.name, "launches.json")
-    os.environ["PANDA_WORKER_LAUNCHES"] = counts_file
+        out = fn()
+        return out, {"launches": dict(_ext.launches),
+                     "sha256": hashlib.sha256(out).hexdigest()}
 
-    def worker_counts() -> dict:
-        with open(counts_file) as f:
-            return json.load(f)
-
-    with tmp, native.NativeSession(BN254) as s:
-        s.set_execution_target(1)
-        t0 = time.perf_counter()
-        s.engine_warmup()
-        warm = time.perf_counter() - t0
-        c0 = worker_counts()
-        got_msm = s.msm(scalars, bases)
-        c1 = worker_counts()
-        got_ntt = s.ntt(data, 12)
-        c2 = worker_counts()
-        during = compute_apps()
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            if s.msm(scalars, bases) != want_msm:
-                raise AssertionError("worker MSM 2^16: repeat blob differs")
-            times.append((time.perf_counter() - t0) * 1e3)
-    os.environ.pop("PANDA_WORKER_LAUNCHES", None)
-    if got_msm != want_msm or got_ntt != want_ntt:
-        raise AssertionError("worker: MSM 2^16 or NTT 2^12 bytes differ "
-                             "from the byte API's")
-    in_worker = {"msm": {k: c1[k] - c0[k] for k in c1},
-                 "ntt": {k: c2[k] - c1[k] for k in c2}}
-    for name, kernels in (("msm", ("digits", "hist", "phase_a", "buckets",
-                                   "wscan")), ("ntt", ())):
-        if in_worker[name] != here[name] or not all(
-                here[name][k] for k in kernels) or not any(
-                here[name].values()):
-            raise AssertionError(f"worker {name}: launches {in_worker[name]}"
-                                 f", in this process {here[name]}")
-    if len(during) != len(before) + 1:
-        raise AssertionError(f"worker: nvidia-smi compute apps {before} "
-                             f"before, {during} while it ran")
-    log(f"[worker] MSM 2^16 and NTT 2^12 through libpanda_host.so's engine "
-        f"target equal the byte API's bytes; the worker held a CUDA context "
-        f"(nvidia-smi compute apps {before} -> {during}); its launches, "
-        f"as in this process: MSM {in_worker['msm']}, NTT "
-        f"{in_worker['ntt']}; start and ping "
-        f"{warm:.2f} s; MSM 2^16 ms a call through the pipe "
-        f"{[round(t, 2) for t in times]} on {card}")
-    return {"warmup_s": warm, "msm_2_16_ms": times,
-            "compute_apps": [before, during], "launches": in_worker}
+    log_n, ntt_log_n = 16, 12
+    here = {}
+    for name in NATIVE_CURVES:
+        cv = CURVES[name]
+        case = nec.msm_case(cv, log_n, oracle=False)
+        nc = nec.ntt_case(cv.fr, ntt_log_n)
+        gm = PandaManager.new(0, cv, device=device)
+        row = here[name] = {}
+        for call in ("msm_cached", "msm_fresh"):
+            row[call] = count(lambda: api.msm(gm, case["scalars"],
+                                              case["bases"]))[1]
+        y, row["ntt"] = count(lambda: api.ntt(gm, nc["data"], ntt_log_n))
+        row["intt"] = count(lambda: api.intt(gm, y, ntt_log_n))[1]
+        row["ntt_v1"] = count(lambda: api.ntt_v1(gm, nc["data"], ntt_log_n,
+                                                 nc["omega"]))[1]
+        gm.deinit()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PANDA_WORKER_PYTHON=sys.executable)
+    for var in ("PANDA_WORKER_DEVICE", "PANDA_WORKER_LAUNCHES"):
+        env.pop(var, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "panda_tpu_torch.tools.native_engine_check",
+         "--log-n", str(log_n)], cwd=root, env=env, capture_output=True,
+        text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"native check: rc {proc.returncode}\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    bad = [c for c in res["checks"] if not c["ok"]]
+    if (not res["ok"] or bad or res["foreign_modules"]
+            or res["ntt_log_n"] != ntt_log_n):
+        raise AssertionError(f"native check: failed {bad}, modules "
+                             f"{res['foreign_modules']}")
+    for name in NATIVE_CURVES:
+        row = res["engine"][name]
+        before, during = row["compute_apps"]
+        if len(during) != len(before) + 1:
+            raise AssertionError(f"native check {name}: nvidia-smi compute "
+                                 f"apps {before} before, {during} while the "
+                                 "worker lived")
+        for call, want in here[name].items():
+            kernels = NATIVE_MSM_KERNELS if call.startswith("msm") else \
+                NATIVE_NTT_KERNELS
+            got = {"launches": row["launches"][call],
+                   "sha256": row["sha256"][call]}
+            if got != want or not all(want["launches"][k] for k in kernels):
+                raise AssertionError(f"native check {name} {call}: worker "
+                                     f"{got}, in this process {want}")
+        fired = {call: {k: v for k, v in c.items() if v}
+                 for call, c in row["launches"].items()}
+        ms = {call: [round(t, 2) for t in v] for call, v in row["ms"].items()}
+        log(f"[native] {name}: {len(res['checks']) // len(NATIVE_CURVES)} "
+            "comparisons true in a process that imports no torch; the "
+            f"worker held a CUDA context (nvidia-smi compute apps {before} "
+            f"-> {during}); its bytes (sha256) and launches equal this "
+            "process's call by call: "
+            f"{fired}; start and ping {row['warmup_s']:.2f} s; MSM "
+            f"2^{log_n} ms a call through the pipe, cached bases and scalars "
+            f"{ms['msm_cached']}, cached bases and fresh scalars "
+            f"{ms['msm_fresh']}; NTT / INTT / ntt_v1 2^{ntt_log_n} ms "
+            f"{ms['ntt'] + ms['intt'] + ms['ntt_v1']} on {card}")
+    log(f"[native] the check took {secs:.1f} s ({res['seconds']:.1f} s in "
+        "its process after imports)")
+    return dict(res, here=here, seconds_total=secs)
 
 
 def sharded_paths(device, card: str) -> dict:
-    """The multi-rank paths and the engine worker.  Four gloo ranks share
+    """The multi-rank paths and the native caller.  Four gloo ranks share
     cuda:0 (the machine has one card): the points-sharded MSM at 2^22 and
     the windows-sharded at 2^20 (BN254), the 2 x 2 MSM at 2^22, BLS12-381
     points-sharded at 2^20, the sharded NTT (mxu) at 2^22 forward and
     inverse and stagewise (jnp) at 2^12 for BN254 Fr, and mxu at 2^20 for
     BLS12-381 Fr; then one NCCL rank (points-sharded MSM and NTT at 2^20),
-    the dry runs on 4 and 1 ranks, and the worker.  Times of four ranks
-    time-sharing one card are not a scaling figure."""
+    the dry runs on 4 and 1 ranks, and the native caller's check.  Times
+    of four ranks time-sharing one card are not a scaling figure."""
     import tempfile
     import torch
     from panda_tpu_torch import PandaManager, entry
@@ -1701,7 +1734,7 @@ def sharded_paths(device, card: str) -> dict:
         entry.dryrun_multichip(n)
         log(f"[sharded] dryrun_multichip({n}) on the card: "
             f"{time.perf_counter() - t1:.1f} s")
-    out["worker"] = worker_path(device, card)
+    out["native"] = native_caller_path(device, card)
     log(f"[sharded] phase took {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -2680,13 +2713,13 @@ def main() -> int:
 
     mark("gather probe")
 
-    # the multi-rank paths and the engine worker; rank 0's launches of the
+    # the multi-rank paths and the native caller; rank 0's launches of the
     # four gloo ranks' cases join the kernels line
     sharded = sharded_paths(device, card)
     for row in sharded["gloo_4"]:
         for k, v in row["launches_rank0"].items():
             counts[k] += v
-    mark("sharded paths, dry runs and the worker")
+    mark("sharded paths, dry runs and the native caller")
 
     # 5. where the time goes, 6. device busy share (not counted)
     from panda_tpu_torch.runtime import api

@@ -1,12 +1,12 @@
 """Engine worker of the port: the accelerated engine behind the native C ABI.
 
 Counterpart of ``panda_tpu/interop/worker.py``, speaking its protocol byte
-for byte.  ``libpanda_host.so`` (``panda_tpu/native/panda_host.cpp``)
-starts one worker a session with execution target 1, as
-``$PANDA_WORKER_PYTHON -m panda_tpu.interop.worker``; pointing
-``PANDA_WORKER_PYTHON`` at this package's launcher (``interop/worker_python``)
-starts this module in its place.  The worker serves the port's byte API
-(``runtime.api``) on the card, ``cuda:0``, or on the CPU when
+for byte.  The port's native library (``native/panda_host.cpp``, built by
+``interop/native.py``) starts one worker a session with execution target
+1, as ``$PANDA_WORKER_PYTHON -m panda_tpu_torch.interop.worker``
+(``PANDA_WORKER_PYTHON`` names the interpreter, default ``python3``), with
+the repository root on ``PYTHONPATH``.  The worker serves the port's byte
+API (``runtime.api``) on the card, ``cuda:0``, or on the CPU when
 ``PANDA_WORKER_DEVICE=cpu``; it keeps its sessions (device tables, NTT
 plans, built kernels) across calls.  With ``PANDA_WORKER_LAUNCHES`` naming
 a file, the worker writes there, before each reply, its kernel launches

@@ -1,10 +1,10 @@
 """The native library's engine target with the port's worker, on the CPU.
 
-The port's twin of ``test_native_engine.py``: ``libpanda_host.so``'s
-sessions with execution target 1 start ``$PANDA_WORKER_PYTHON -m
-panda_tpu.interop.worker``; with ``PANDA_WORKER_PYTHON`` set to the port's
-launcher (``panda_tpu_torch/interop/worker_python``) that is the port's
-worker, here on the CPU (``PANDA_WORKER_DEVICE=cpu``).  A native caller
+The port's twin of ``test_native_engine.py``: the port's own
+``libpanda_host.so`` (``interop/native.py``) starts, for a session with
+execution target 1, ``$PANDA_WORKER_PYTHON -m
+panda_tpu_torch.interop.worker``, here on the CPU
+(``PANDA_WORKER_DEVICE=cpu``) under this interpreter.  A native caller
 gets bytes identical to the port's byte API, and to the JAX package's; the
 worker's errors and its death map to the JAX worker's codes.  The JAX byte
 API's MSM compiles for minutes on this CPU, so the tier-1 test holds the
@@ -39,7 +39,6 @@ from panda_tpu_torch.runtime.manager import PandaManager
 from tests.jax_release import release_jax_programs  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
-LAUNCHER = ROOT / "panda_tpu_torch" / "interop" / "worker_python"
 FP, FR = BN254.fp, BN254.fr
 N = 16
 
@@ -51,9 +50,9 @@ def _blob(spec, vals) -> bytes:
 
 @pytest.fixture
 def port_worker(monkeypatch):
-    """The native library's engine worker is the port's, on the CPU."""
-    monkeypatch.setenv("PANDA_WORKER_PYTHON", str(LAUNCHER))
-    monkeypatch.setenv("PANDA_TORCH_PYTHON", sys.executable)
+    """The port's library starts its worker under this interpreter, on
+    the CPU."""
+    monkeypatch.setenv("PANDA_WORKER_PYTHON", sys.executable)
     monkeypatch.setenv("PANDA_WORKER_DEVICE", "cpu")
 
 
@@ -110,14 +109,14 @@ def test_engine_error_codes(port_worker, case):
 
 def test_worker_death_maps_to_not_ready(port_worker, monkeypatch, case):
     """A worker that cannot start surfaces as NOT_READY (3); with the
-    launcher back, the session starts a new worker and answers."""
+    interpreter back, the session starts a new worker and answers."""
     with native.NativeSession(BN254) as s:
         s.set_execution_target(1)
         monkeypatch.setenv("PANDA_WORKER_PYTHON", "/nonexistent/python")
         with pytest.raises(PandaRuntimeError) as e:
             s.engine_warmup()
         assert e.value.code == PandaError.NOT_READY == 3
-        monkeypatch.setenv("PANDA_WORKER_PYTHON", str(LAUNCHER))
+        monkeypatch.setenv("PANDA_WORKER_PYTHON", sys.executable)
         s.engine_warmup()
         assert s.ntt(case["data"], 4) == api.ntt(case["gm"], case["data"], 4)
 
