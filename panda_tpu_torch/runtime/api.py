@@ -4,7 +4,10 @@ Counterpart of ``panda_tpu/runtime/api.py``: the same entry points and
 curve-suffixed aliases, the same wire contract (LE Montgomery bytes in; a
 3-field result blob, or the transformed elements, out), the same
 ``PandaError`` codes for malformed input and the same trace labels
-(``utils/trace.py``).
+(``utils/trace.py``).  An MSM call is the span ``msm: call``, around the
+scalar ingest's ``msm: scalar words (host)`` and ``msm: scalar copy in``,
+``msm: window sums (device)`` (its ``msm: launches (host)`` and ``msm: copy
+back wait``) and ``msm: horner (host)``.
 
 On the card the MSM (any n; chunks of 2^20 points above 2^20) and the NTT
 run for BN254, BLS12-377 and BLS12-381 (48-byte base coordinates for the
@@ -12,6 +15,8 @@ BLS curves).  ``msm_host`` runs the native C++ host MSM and no kernel.
 """
 
 from __future__ import annotations
+
+import functools
 
 from ..curves.config import BLS12_377, BLS12_381, BN254
 from ..curves.point import ProjPoint
@@ -51,11 +56,22 @@ def _msm_run(gm: PandaManager, scalars, bases_xy, pts=None) -> bytes:
     c = msm_ops.window_bits(max(scalars.shape[-1] - 1, 1).bit_length(),
                             bits=curve.fr.bits)
     with trace.timer("msm: window sums (device)"):
-        sums = msm_ops.window_sums_fn(curve, c)(*bases_xy, scalars, pts)
-        sums = ProjPoint(*(a.cpu() for a in sums))   # d2h: W points
+        with trace.timer("msm: launches (host)"):
+            sums = msm_ops.window_sums_fn(curve, c)(*bases_xy, scalars, pts)
+        with trace.timer("msm: copy back wait"):
+            sums = ProjPoint(*(a.cpu() for a in sums))   # d2h: W points
     with trace.timer("msm: horner (host)"):
         acc = msm_ops.host_horner(curve, sums, c)
     return gm.format_affine_result(acc)
+
+
+def _msm_call(fn):
+    """An MSM entry point, timed whole as the span ``msm: call``."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        with trace.timer("msm: call"):
+            return fn(*args, **kwargs)
+    return call
 
 
 def _cached(items: list, index: int, what: str):
@@ -64,6 +80,7 @@ def _cached(items: list, index: int, what: str):
     return items[index]
 
 
+@_msm_call
 def msm(gm: PandaManager, scalars_bytes: bytes, bases_bytes: bytes) -> bytes:
     """Scalars and bases as bytes -> result blob."""
     _check_msm(_count(scalars_bytes, gm.curve.fr.n_bytes),
@@ -72,6 +89,7 @@ def msm(gm: PandaManager, scalars_bytes: bytes, bases_bytes: bytes) -> bytes:
                     gm.ingest_bases(bases_bytes))
 
 
+@_msm_call
 def msm_with_cached_bases(gm: PandaManager, scalars_bytes: bytes,
                           bases_index: int = 0) -> bytes:
     bases = _cached(gm.d_bases, bases_index, "bases")
@@ -80,6 +98,7 @@ def msm_with_cached_bases(gm: PandaManager, scalars_bytes: bytes,
                     gm.point_major(bases_index))
 
 
+@_msm_call
 def msm_with_cached_scalars(gm: PandaManager, bases_bytes: bytes,
                             scalars_index: int = 0) -> bytes:
     scalars = _cached(gm.d_scalars, scalars_index, "scalars")
@@ -87,6 +106,7 @@ def msm_with_cached_scalars(gm: PandaManager, bases_bytes: bytes,
     return _msm_run(gm, scalars, gm.ingest_bases(bases_bytes))
 
 
+@_msm_call
 def msm_with_cached_input(gm: PandaManager, scalars_index: int = 0,
                           bases_index: int = 0) -> bytes:
     bases = _cached(gm.d_bases, bases_index, "bases")
@@ -95,6 +115,7 @@ def msm_with_cached_input(gm: PandaManager, scalars_index: int = 0,
     return _msm_run(gm, scalars, bases, gm.point_major(bases_index))
 
 
+@_msm_call
 def msm_host(gm: PandaManager, scalars_bytes: bytes,
              bases_bytes: bytes) -> bytes:
     """``panda_msm_bn254_gpu_host``: the native C++ host MSM

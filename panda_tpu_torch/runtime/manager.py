@@ -21,6 +21,7 @@ from ..curves.config import BN254, CURVES, CurveSpec
 from ..fields import mont
 from ..ops import ntt as ntt_ops
 from ..ops import phase_a as phase_a_ops
+from ..utils import trace
 from .errors import PandaError, PandaRuntimeError
 
 
@@ -131,12 +132,15 @@ class PandaManager:
 
     def ingest_scalars(self, blob: bytes) -> torch.Tensor:
         """Scalar bytes -> (8, n) words; any value below 2^256 is taken,
-        the digit recode reduces it."""
+        the digit recode reduces it.  Spans: the host transpose ``msm:
+        scalar words (host)``, the pageable copy ``msm: scalar copy in``."""
         try:
-            w = mont.bytes_to_words(self.curve.fr, blob)
+            with trace.timer("msm: scalar words (host)"):
+                w = mont.bytes_to_words(self.curve.fr, blob)
         except ValueError as e:
             raise PandaRuntimeError(PandaError.INVALID_CONFIGURATION, str(e))
-        return mont.words_tensor(w, self.device)
+        with trace.timer("msm: scalar copy in"):
+            return mont.words_tensor(w, self.device)
 
     def init_msm(self, bases_sets: list) -> int:
         self._require_init()
